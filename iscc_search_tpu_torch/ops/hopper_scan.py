@@ -1,0 +1,261 @@
+"""
+Exact two-phase NPHD top-k over one code-length partition, through two
+hand-written Hopper kernels (port of the Pallas path of
+``iscc_search_tpu/ops/pallas_scan.py``).
+
+- :func:`blockmax` (phase 1, ``csrc/blockmax.cu``) replaces the Pallas
+  kernels ``_scan_kernel_bitplane`` and ``_scan_kernel_unpacked_perm``.
+- :func:`gather_rescore` (phase 3, ``csrc/gather_rescore.cu``) replaces
+  ``_gather_rescore_kernel``.
+
+Both read the compact packed partition ``(cap, lanes)`` int32 directly; the
+bit-transposed, permuted and int8 twins of the TPU engine existed for its
+matrix unit and tiling and are not needed here. Validity reaches phase 1 as
+an ``(cap,)`` uint8 mask in original row order.
+
+Each wrapper checks device, dtype, shape and contiguity, then takes its
+plain PyTorch version (``*_plain``) for tensors on the CPU and launches its
+kernel on the current stream for CUDA tensors. Any other device raises, and
+so does a launch the card refuses: there is no fallback from a CUDA tensor
+to the plain version. ``<wrapper>.launches`` counts kernel launches only.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from iscc_search_tpu_torch.ops import _build
+from iscc_search_tpu_torch.ops.packing import MAX_LANES
+from iscc_search_tpu_torch.ops.pm1_scan import (
+    NEG_SCORE,
+    masked_queries,
+    query_prefix,
+    segmented_unpack_dots,
+    topk_blocks_hier,
+    unpack_pm1,
+)
+
+BLOCK = 128  # rows per block-max cell
+PLAIN_CHUNK_ROWS = 65536  # rows per step of blockmax_plain (bounds its memory)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # q, q_stride, min_lanes, q_scale, nq, db, valid, nblocks, lanes, out, stream
+    "iscc_blockmax": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P),
+    # q, q_stride, min_lanes, block_ids, nq, kk, db, lanes, out, stream
+    "iscc_gather_rescore": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _P),
+}
+
+
+def _entry(name):
+    # type: (str) -> ctypes._CFuncPtr
+    fn = getattr(_build.library(), name)
+    fn.argtypes = _SIGNATURES[name]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(t, name, dtype, ndim):
+    # type: (torch.Tensor, str, torch.dtype, int) -> None
+    if t.dtype != dtype or t.dim() != ndim or not t.is_contiguous():
+        raise ValueError(
+            f"{name} must be a contiguous {ndim}-d {dtype} tensor, got {t.dtype} "
+            f"{tuple(t.shape)} (contiguous={t.is_contiguous()})"
+        )
+
+
+def _route(tensors):
+    # type: (list[torch.Tensor]) -> str
+    """'cpu' (plain version) or 'cuda' (kernel); anything else raises."""
+    devices = {t.device for t in tensors}
+    if len(devices) != 1:
+        raise ValueError(f"all inputs must be on one device, got {sorted(map(str, devices))}")
+    kind = devices.pop().type
+    if kind not in ("cpu", "cuda"):
+        raise RuntimeError(f"no kernel for device type {kind!r}: inputs must be on the CPU or a CUDA device")
+    return kind
+
+
+def _check_queries(q_packed, min_lanes, lanes):
+    _check(q_packed, "q_packed", torch.int32, 2)
+    _check(min_lanes, "min_lanes", torch.int32, 1)
+    if q_packed.shape[1] < lanes or min_lanes.shape[0] != q_packed.shape[0]:
+        raise ValueError(
+            f"q_packed {tuple(q_packed.shape)} / min_lanes {tuple(min_lanes.shape)} "
+            f"do not fit a {lanes}-lane partition"
+        )
+
+
+def _check_db(db):
+    _check(db, "db", torch.int32, 2)
+    cap, lanes = db.shape
+    if cap % BLOCK or not 1 <= lanes <= MAX_LANES:
+        raise ValueError(f"db must be (cap, lanes) with cap % {BLOCK} == 0 and 1 <= lanes <= {MAX_LANES}, got {tuple(db.shape)}")
+    return cap, lanes
+
+
+# ----------------------------------------------------------------- phase 1
+
+
+def blockmax_plain(q_packed, min_lanes, q_scale, db, valid):
+    # type: (...) -> torch.Tensor
+    """Plain PyTorch phase 1: unpack to ±1, f32 matmul (exact for integer
+    dots of at most 256 terms), additive -65536 penalty on invalid rows,
+    128-row max, then ``0.5 + m * q_scale`` rounded once to float32 (the
+    float64 product and sum are exact), as the kernel's ``__fmaf_rn`` and
+    the JAX phase-1 kernels round it. Row chunks bound the memory."""
+    cap, lanes = db.shape
+    nbits = lanes * 32
+    q_pm1 = masked_queries(q_packed, min_lanes, nbits)
+    pen = torch.where(valid.to(torch.bool), 0.0, -65536.0)
+    out = torch.empty((q_packed.shape[0], cap // BLOCK), dtype=torch.float32, device=db.device)
+    for s in range(0, cap, PLAIN_CHUNK_ROWS):
+        e = min(cap, s + PLAIN_CHUNK_ROWS)
+        dot = q_pm1 @ unpack_pm1(db[s:e], nbits).T + pen[None, s:e]
+        m = dot.reshape(dot.shape[0], (e - s) // BLOCK, BLOCK).amax(dim=2)
+        out[:, s // BLOCK : e // BLOCK] = (0.5 + m.double() * q_scale.double()[:, None]).float()
+    return out
+
+
+def blockmax(q_packed, min_lanes, q_scale, db, valid):
+    # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor) -> torch.Tensor
+    """
+    Phase-1 block maxima of one partition.
+
+    :param q_packed: (Q, >= lanes) int32 packed queries
+    :param min_lanes: (Q,) int32 common-prefix lanes, <= lanes
+    :param q_scale: (Q,) float32 ``1 / (2 * 32 * min_lanes)`` (see query_prefix)
+    :param db: (cap, lanes) int32 packed partition, cap % 128 == 0
+    :param valid: (cap,) uint8 validity, original row order
+    :return: (Q, cap // 128) float32: block b holds the max over valid rows
+        [128b, 128b+128) of ``0.5 + dot * q_scale``; a block with no valid
+        row lies below NEG_SCORE
+    """
+    cap, lanes = _check_db(db)
+    _check_queries(q_packed, min_lanes, lanes)
+    _check(q_scale, "q_scale", torch.float32, 1)
+    _check(valid, "valid", torch.uint8, 1)
+    if q_scale.shape[0] != q_packed.shape[0] or valid.shape[0] != cap:
+        raise ValueError("q_scale must be (Q,) and valid (cap,)")
+    if _route([q_packed, min_lanes, q_scale, db, valid]) == "cpu":
+        return blockmax_plain(q_packed, min_lanes, q_scale, db, valid)
+    nq = q_packed.shape[0]
+    out = torch.empty((nq, cap // BLOCK), dtype=torch.float32, device=db.device)
+    with torch.cuda.device(db.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry("iscc_blockmax")(
+            q_packed.data_ptr(), q_packed.stride(0), min_lanes.data_ptr(), q_scale.data_ptr(), nq,
+            db.data_ptr(), valid.data_ptr(), cap // BLOCK, lanes, out.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"blockmax kernel launch failed: cudaError {err}")
+    blockmax.launches += 1
+    return out
+
+
+blockmax.launches = 0
+
+
+# ----------------------------------------------------------------- phase 3
+
+
+def gather_rescore_plain(q_packed, min_lanes, block_ids, db):
+    # type: (...) -> torch.Tensor
+    """Plain PyTorch phase 3: gather the candidate rows, unpack, f32 dots."""
+    q, kk = block_ids.shape
+    nbits = db.shape[1] * 32
+    offsets = torch.arange(BLOCK, device=db.device)
+    rows = (block_ids.to(torch.int64)[:, :, None] * BLOCK + offsets).reshape(q, kk * BLOCK)
+    return segmented_unpack_dots(masked_queries(q_packed, min_lanes, nbits), db, rows, nbits)
+
+
+def gather_rescore(q_packed, min_lanes, block_ids, db):
+    # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor) -> torch.Tensor
+    """
+    Phase-3 exact rescore of each query's candidate blocks.
+
+    :param q_packed: (Q, >= lanes) int32 packed queries
+    :param min_lanes: (Q,) int32 common-prefix lanes, <= lanes
+    :param block_ids: (Q, kk) int32 candidate block ids, each < cap // 128
+    :param db: (cap, lanes) int32 packed partition
+    :return: (Q, kk * 128) float32 raw ±1 dots; column c belongs to row
+        ``block_ids[q, c // 128] * 128 + c % 128``
+    """
+    cap, lanes = _check_db(db)
+    _check_queries(q_packed, min_lanes, lanes)
+    _check(block_ids, "block_ids", torch.int32, 2)
+    if block_ids.shape[0] != q_packed.shape[0]:
+        raise ValueError("block_ids must be (Q, kk)")
+    if _route([q_packed, min_lanes, block_ids, db]) == "cpu":
+        return gather_rescore_plain(q_packed, min_lanes, block_ids, db)
+    nq, kk = block_ids.shape
+    out = torch.empty((nq, kk * BLOCK), dtype=torch.float32, device=db.device)
+    with torch.cuda.device(db.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry("iscc_gather_rescore")(
+            q_packed.data_ptr(), q_packed.stride(0), min_lanes.data_ptr(), block_ids.data_ptr(),
+            nq, kk, db.data_ptr(), lanes, out.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"gather_rescore kernel launch failed: cudaError {err}")
+    gather_rescore.launches += 1
+    return out
+
+
+gather_rescore.launches = 0
+
+
+# ------------------------------------------------------- exact two-phase top-k
+
+
+def blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k):
+    # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+    """
+    Exact top-k of one partition: phase 1 block maxima -> hierarchical top-k
+    blocks -> phase 3 gather rescore -> final top-k (contract of
+    ``pallas_blockmax_topk_impl``).
+
+    :param db_packed: (cap, lanes) int32 packed partition
+    :param db_valid: (cap,) uint8 validity
+    :return: (scores (Q, k) float32 desc, rows (Q, k) int32, -1 and NEG_SCORE
+        where fewer than k valid rows exist)
+    """
+    n = db_packed.shape[0]
+    q = q_packed.shape[0]
+    total_blocks = n // BLOCK
+    block_max = blockmax(q_packed, min_lanes, q_scale, db_packed, db_valid)
+    kk = min(k, total_blocks)
+    top_blocks = topk_blocks_hier(block_max, kk)  # (Q, kk) int64
+    offsets = torch.arange(BLOCK, device=db_packed.device)
+    rows = (top_blocks[:, :, None] * BLOCK + offsets).reshape(q, kk * BLOCK)
+    cand_valid = db_valid.reshape(total_blocks, BLOCK)[top_blocks].reshape(q, kk * BLOCK)
+    dots = gather_rescore(q_packed, min_lanes, top_blocks.to(torch.int32), db_packed)
+    # Product and sum rounded separately, as the JAX phase 3 rounds them
+    # (phase 1 rounds once; both are strictly increasing in the dot, so
+    # the block cut stays exact).
+    scores = 0.5 + dots * q_scale[:, None]
+    scores = torch.where(cand_valid.to(torch.bool), scores, NEG_SCORE)
+    out_k = min(k, scores.shape[1])
+    fs, pos = torch.topk(scores, out_k, dim=1)
+    fi = torch.where(fs > NEG_SCORE, torch.gather(rows, 1, pos), -1).to(torch.int32)
+    if out_k < k:
+        fs = torch.nn.functional.pad(fs, (0, k - out_k), value=NEG_SCORE)
+        fi = torch.nn.functional.pad(fi, (0, k - out_k), value=-1)
+    return fs, fi
+
+
+def blockmax_topk_packedq_impl(q_packed, q_lanes, db_packed, db_valid, k, nbits):
+    # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+    """Query prep (common-prefix lanes and scale) + :func:`blockmax_topk_impl`
+    for packed queries — the engine's per-partition search step.
+
+    :param q_packed: (Q, L) int32 packed queries, L >= nbits // 32
+    :param q_lanes: (Q,) int32 query lane counts
+    """
+    if db_packed.shape[1] * 32 != nbits:
+        raise ValueError(f"db_packed {tuple(db_packed.shape)} is not a {nbits}-bit partition")
+    min_lanes, q_scale = query_prefix(q_lanes, nbits)
+    return blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k)

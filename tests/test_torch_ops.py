@@ -1,0 +1,420 @@
+"""The ops of ``iscc_search_tpu_torch`` against their JAX counterparts in
+``iscc_search_tpu`` (CPU; the JAX Pallas kernels run in interpret mode).
+
+Inputs are made with numpy from fixed seeds and handed to both packages.
+Parity rule:
+
+- query prep, the ±1 unpack and phase-3 dots are bit-exact;
+- phase-1 block maxima are bit-exact for every 128-row block holding at
+  least one valid row; for a block with none, both sides lie below
+  NEG_SCORE (the JAX kernels round that penalty sum in bf16, each its own
+  way, while the port keeps it in f32);
+- a top-k has the same score multiset per query as the JAX function, and
+  every returned row carries its brute-force NPHD score; the order of
+  tied rows is not compared (``torch.topk`` and ``lax.top_k`` break ties
+  differently).
+"""
+
+import importlib.util
+import os
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from iscc_search_tpu.ops import nphd as jax_nphd
+from iscc_search_tpu.ops import packing as jax_packing
+from iscc_search_tpu.ops import pallas_scan as jax_pallas
+from iscc_search_tpu.ops import pm1_scan as jax_pm1
+from iscc_search_tpu_torch.ops import _build, packing, pm1_scan
+from iscc_search_tpu_torch.ops import hopper_scan as hs
+from iscc_search_tpu_torch.ops.nphd import NEG_SCORE, nphd_scores, popcount32
+
+REPO = Path(__file__).resolve().parents[1]
+WIDTHS = (64, 128, 192, 256)
+
+
+def _t(a):
+    """numpy -> torch; uint32 codes travel as their int32 bits."""
+    a = np.ascontiguousarray(a)
+    if a.dtype == np.uint32:
+        a = a.view(np.int32)
+    elif a.dtype == np.bool_:
+        a = a.view(np.uint8)
+    return torch.from_numpy(a.copy())
+
+
+def _codes(rng, n, lane_choices=(2, 4, 6, 8)):
+    """(n, 8) uint32 codes zeroed past each row's length, (n,) int32 lanes."""
+    lanes = rng.choice(np.asarray(lane_choices, np.int32), n).astype(np.int32)
+    codes = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    codes[np.arange(8)[None, :] >= lanes[:, None]] = 0
+    return codes, lanes
+
+
+def _partition(nbits, n=8192, n_live=None, seed=0):
+    """A (n, lanes) partition with tombstones, one dead block and invalid
+    padding rows past ``n_live``, plus 13 queries of every length."""
+    rng = np.random.default_rng(seed + nbits)
+    lanes = nbits // 32
+    packed = rng.integers(0, 2**32, (n, lanes), dtype=np.uint32)
+    valid = np.zeros(n, bool)
+    valid[: n - 300 if n_live is None else n_live] = True
+    valid[rng.integers(0, n, n // 20)] = False
+    valid[128 * 2 : 128 * 3] = False
+    q_codes, q_lanes = _codes(rng, 13)
+    q_codes[:3, :lanes] = packed[[5 % n, 700 % n, 1500 % n]]  # exact matches
+    q_lanes[:3] = lanes
+    return packed, valid, q_codes, q_lanes
+
+
+def _assert_blockmax_parity(got, want, valid):
+    has_valid = valid.reshape(-1, 128).any(axis=1)
+    np.testing.assert_array_equal(got[:, has_valid], want[:, has_valid])
+    assert (got[:, ~has_valid] < NEG_SCORE).all() and (want[:, ~has_valid] < NEG_SCORE).all()
+
+
+def _brute_force(q_codes, q_lanes, codes, lanes, valid):
+    return nphd_scores(_t(q_codes), _t(q_lanes), _t(codes), _t(lanes), _t(valid)).numpy()
+
+
+def _assert_topk_parity(got_s, got_i, want_s, want_i, ref):
+    """Same score multiset per query; each returned row carries its
+    brute-force score ``ref[q, row]``; -1 exactly where the score is NEG."""
+    np.testing.assert_array_equal(np.sort(got_s, axis=1), np.sort(want_s, axis=1))
+    for s, i in ((got_s, got_i), (want_s, want_i)):
+        np.testing.assert_array_equal(i < 0, s <= NEG_SCORE)
+        q, r = np.nonzero(i >= 0)
+        np.testing.assert_allclose(ref[q, i[q, r]], s[q, r], rtol=0, atol=1e-6)
+
+
+# ------------------------------------------------------------- host + prep
+
+
+def test_packing_equals_jax_package():
+    rng = np.random.default_rng(1)
+    bodies = [rng.integers(0, 256, 8 * rng.integers(1, 5), dtype=np.uint8).tobytes() for _ in range(200)]
+    for max_lanes in (8, 6):
+        fit = [b for b in bodies if len(b) <= 4 * max_lanes]
+        got, want = packing.pack_codes(fit, max_lanes), jax_packing.pack_codes(fit, max_lanes)
+        np.testing.assert_array_equal(got[0], want[0])
+        np.testing.assert_array_equal(got[1], want[1])
+    for body in bodies[:20]:
+        lanes, n = packing.pack_code(body)
+        assert (lanes.tolist(), n) == (jax_packing.pack_code(body)[0].tolist(), jax_packing.pack_code(body)[1])
+        assert packing.unpack_code(lanes, n) == jax_packing.unpack_code(lanes, n) == body
+    for bad in (b"", b"abc", bytes(36)):
+        with pytest.raises(ValueError):
+            packing.pack_codes([bad])
+
+
+@pytest.mark.parametrize("nbits", WIDTHS)
+def test_unpack_pm1_equals_jax(nbits):
+    codes, _ = _codes(np.random.default_rng(nbits), 64)
+    got = pm1_scan.unpack_pm1(_t(codes), nbits).numpy()
+    want = np.asarray(jax_pm1.unpack_pm1(jnp.asarray(codes), nbits, jnp.float32))
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(pm1_scan.unpack_pm1_np(codes, nbits), jax_pm1.unpack_pm1_np(codes, nbits))
+
+
+@pytest.mark.parametrize("nbits", WIDTHS)
+def test_prepare_queries_equal_jax_bit_for_bit(nbits):
+    codes, lanes = _codes(np.random.default_rng(nbits + 7), 40)
+    q_pm1, q_scale = pm1_scan.prepare_queries_impl(_t(codes), _t(lanes), nbits)
+    j_pm1, j_scale = jax_pm1.prepare_queries_impl(jnp.asarray(codes), jnp.asarray(lanes), nbits)
+    np.testing.assert_array_equal(q_pm1.numpy(), np.asarray(j_pm1))
+    assert q_scale.numpy().tobytes() == np.asarray(j_scale).tobytes()
+    h_pm1, h_scale = pm1_scan.prepare_queries(codes, lanes, nbits)
+    w_pm1, w_scale = jax_pm1.prepare_queries(codes, lanes, nbits)
+    np.testing.assert_array_equal(h_pm1, w_pm1)
+    assert h_scale.tobytes() == w_scale.tobytes() == q_scale.numpy().tobytes()
+    min_lanes, scale = pm1_scan.query_prefix(_t(lanes), nbits)
+    np.testing.assert_array_equal(min_lanes.numpy(), np.minimum(lanes, nbits // 32))
+    assert scale.numpy().tobytes() == q_scale.numpy().tobytes()
+
+
+def test_nphd_scores_equal_jax():
+    rng = np.random.default_rng(3)
+    codes, lanes = _codes(rng, 300)
+    q_codes, q_lanes = _codes(rng, 9)
+    valid = rng.random(300) > 0.2
+    got = nphd_scores(_t(q_codes), _t(q_lanes), _t(codes), _t(lanes), _t(valid)).numpy()
+    want = np.asarray(
+        jax_nphd.nphd_scores(
+            jnp.asarray(q_codes), jnp.asarray(q_lanes), jnp.asarray(codes), jnp.asarray(lanes), jnp.asarray(valid)
+        )
+    )
+    np.testing.assert_array_equal(got, want)
+    words = rng.integers(0, 2**32, 1000, dtype=np.uint32)
+    np.testing.assert_array_equal(popcount32(_t(words)).numpy(), np.unpackbits(words.view(np.uint8)).reshape(-1, 32).sum(1))
+
+
+@pytest.mark.parametrize("nb,k", [(128 * 40, 16), (128 * 20, 16), (1000, 10), (5, 10)])
+def test_topk_blocks_hier_selects_the_jax_blocks(nb, k):
+    """Hierarchical (nb=5120), flat (few super-blocks), ragged and
+    fewer-blocks-than-k branches; distinct maxima, so the sets agree."""
+    bm = np.random.default_rng(nb).permutation(7 * nb)[: 3 * nb].reshape(3, nb).astype(np.float32)
+    got = pm1_scan.topk_blocks_hier(torch.from_numpy(bm), k).numpy()
+    want = np.asarray(jax_pm1.topk_blocks_hier(jnp.asarray(bm), k))
+    assert got.shape == want.shape == (3, min(k, nb))
+    np.testing.assert_array_equal(np.sort(got, axis=1), np.sort(want, axis=1))
+
+
+def test_segmented_unpack_dots_equal_jax():
+    rng = np.random.default_rng(4)
+    packed = rng.integers(0, 2**32, (4096, 6), dtype=np.uint32)
+    q_codes, q_lanes = _codes(rng, 5)
+    rows = rng.integers(0, 4096, (5, 3000)).astype(np.int32)
+    q_pm1, _ = pm1_scan.prepare_queries(q_codes, q_lanes, 192)
+    got = pm1_scan.segmented_unpack_dots(torch.from_numpy(q_pm1), _t(packed), torch.from_numpy(rows).long(), 192)
+    want = jax_pm1.segmented_unpack_dots(
+        jnp.asarray(q_pm1, jnp.bfloat16), jnp.asarray(packed), jnp.asarray(rows), 192, jnp.bfloat16, jnp.float32
+    )
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("nbits,k", [(64, 10), (256, 10), (128, 3)])
+def test_pm1_blockmax_topk_impl_equals_jax(nbits, k):
+    packed, valid, q_codes, q_lanes = _partition(nbits, n=4096)
+    q_pm1, q_scale = pm1_scan.prepare_queries(q_codes, q_lanes, nbits)
+    got = pm1_scan.pm1_blockmax_topk_impl(
+        torch.from_numpy(q_pm1), torch.from_numpy(q_scale), _t(packed), _t(valid), k, nbits, chunk_size=1024
+    )
+    want = jax_pm1.pm1_blockmax_topk_impl(
+        jnp.asarray(q_pm1), jnp.asarray(q_scale), jnp.asarray(packed), jnp.asarray(valid), k, nbits, chunk_size=1024
+    )
+    full = np.zeros((len(packed), 8), np.uint32)
+    full[:, : nbits // 32] = packed
+    ref = _brute_force(q_codes, q_lanes, full, np.full(len(packed), nbits // 32, np.int32), valid)
+    _assert_topk_parity(got[0].numpy(), got[1].numpy(), np.asarray(want[0]), np.asarray(want[1]), ref)
+
+
+# ------------------------------------------------------------ the kernels
+
+
+def _jax_blockmax(nbits, packed, valid, q_codes, q_lanes):
+    """Kernel 1 (bitplane, 128/256-bit) or 2 (perm, 64/192-bit), as the
+    JAX engine routes them, in interpret mode."""
+    q_pm1, q_scale = jax_pm1.prepare_queries_impl(jnp.asarray(q_codes), jnp.asarray(q_lanes), nbits)
+    if nbits in (128, 256):
+        db, flags = jax_pallas.bit_transpose_packed(jnp.asarray(packed)), {"bitplane": True}
+    else:
+        db = jax_pallas.build_unpacked_db(jnp.asarray(packed), nbits, permute=True)
+        flags = {"unpacked": True, "permuted": True}
+    out = jax_pallas.pallas_blockmax(
+        q_pm1, q_scale, db, jnp.asarray(valid), nbits, chunk_size=4096, interpret=True, **flags
+    )
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("nbits", WIDTHS)
+def test_blockmax_plain_matches_pallas_kernels(nbits):
+    packed, valid, q_codes, q_lanes = _partition(nbits)
+    min_lanes, q_scale = pm1_scan.query_prefix(_t(q_lanes), nbits)
+    launches = hs.blockmax.launches
+    got = hs.blockmax(_t(q_codes), min_lanes, q_scale, _t(packed), _t(valid)).numpy()
+    assert hs.blockmax.launches == launches  # the CPU takes the plain version
+    want = _jax_blockmax(nbits, packed, valid, q_codes, q_lanes)
+    assert got.shape == want.shape == (13, len(packed) // 128)
+    _assert_blockmax_parity(got, want, valid)
+    np.testing.assert_array_equal(got[:3].max(axis=1), 1.0)  # exact matches
+
+
+@pytest.mark.parametrize("nbits", WIDTHS)
+def test_gather_rescore_plain_equals_pallas_kernel(nbits):
+    packed, _, q_codes, q_lanes = _partition(nbits)
+    kk = 5
+    block_ids = np.random.default_rng(nbits).integers(0, len(packed) // 128, (13, kk)).astype(np.int32)
+    min_lanes, _ = pm1_scan.query_prefix(_t(q_lanes), nbits)
+    launches = hs.gather_rescore.launches
+    got = hs.gather_rescore(_t(q_codes), min_lanes, torch.from_numpy(block_ids), _t(packed)).numpy()
+    assert hs.gather_rescore.launches == launches
+    q_pm1, _ = jax_pm1.prepare_queries_impl(jnp.asarray(q_codes), jnp.asarray(q_lanes), nbits)
+    db_unpacked = jax_pallas.build_unpacked_db(jnp.asarray(packed), nbits)
+    want = jax_pallas.pallas_gather_rescore(
+        q_pm1.astype(jnp.int8), jnp.asarray(block_ids), db_unpacked, kk, interpret=True
+    )
+    np.testing.assert_array_equal(got, np.asarray(want))
+
+
+def _jax_topk(nbits, packed, valid, q_codes, q_lanes, k, chunk):
+    """pallas_blockmax_topk_packedq_impl with the twins the JAX engine builds
+    (bitplane + int8 for 128/256-bit, perm + int8 for 64/192-bit); below
+    one 4096-row group the plain int8 kernel stands in for phase 1."""
+    jp = jnp.asarray(packed)
+    kw = {"db_unpacked": jax_pallas.build_unpacked_db(jp, nbits)}
+    if len(packed) % 4096:
+        kw["unpacked"] = True
+    elif nbits in (128, 256):
+        kw["db_bitplane"] = jax_pallas.bit_transpose_packed(jp)
+    else:
+        kw.update(unpacked=True, db_perm=jax_pallas.build_unpacked_db(jp, nbits, permute=True))
+    s, i = jax_pallas.pallas_blockmax_topk_packedq_impl(
+        jnp.asarray(q_codes), jnp.asarray(q_lanes), jp, jnp.asarray(valid), k, nbits,
+        chunk_size=chunk, interpret=True, **kw,
+    )
+    return np.asarray(s), np.asarray(i)
+
+
+@pytest.mark.parametrize(
+    "nbits,n,k",
+    [(64, 8192, 10), (128, 8192, 10), (192, 8192, 7), (256, 8192, 16), (256, 1024, 10), (192, 128, 200)],
+)
+def test_blockmax_topk_packedq_matches_pallas_and_brute_force(nbits, n, k):
+    """Non-power-of-two k, total_blocks < k (n=1024: 8 blocks) and k beyond
+    the partition (n=128: padded with -1 / NEG_SCORE)."""
+    packed, valid, q_codes, q_lanes = _partition(nbits, n=n, n_live=n - 40)
+    got_s, got_i = hs.blockmax_topk_packedq_impl(_t(q_codes), _t(q_lanes), _t(packed), _t(valid), k, nbits)
+    assert got_s.dtype == torch.float32 and got_i.dtype == torch.int32 and got_s.shape == (13, k)
+    want_s, want_i = _jax_topk(nbits, packed, valid, q_codes, q_lanes, k, chunk=min(n, 4096))
+    full = np.zeros((n, 8), np.uint32)
+    full[:, : nbits // 32] = packed
+    ref = _brute_force(q_codes, q_lanes, full, np.full(n, nbits // 32, np.int32), valid)
+    _assert_topk_parity(got_s.numpy(), got_i.numpy(), want_s, want_i, ref)
+    top = -np.sort(-ref, axis=1)[:, :k]
+    top = np.pad(top, ((0, 0), (0, k - top.shape[1])), constant_values=NEG_SCORE)
+    np.testing.assert_allclose(np.sort(got_s.numpy(), axis=1)[:, ::-1], top, rtol=0, atol=1e-6)
+
+
+def test_blockmax_topk_rejects_a_partition_of_another_width():
+    packed, valid, q_codes, q_lanes = _partition(128, n=1024)
+    with pytest.raises(ValueError, match="not a 256-bit partition"):
+        hs.blockmax_topk_packedq_impl(_t(q_codes), _t(q_lanes), _t(packed), _t(valid), 10, 256)
+
+
+# ------------------------------------------------------ wrapper contracts
+
+
+def _args(nbits=128, cap=256, nq=4):
+    packed, valid, q_codes, q_lanes = _partition(nbits, n=cap, n_live=cap)
+    min_lanes, q_scale = pm1_scan.query_prefix(_t(q_lanes[:nq]), nbits)
+    return _t(q_codes[:nq]), min_lanes, q_scale, _t(packed), _t(valid)
+
+
+@pytest.mark.parametrize(
+    "mutate,error",
+    [
+        (lambda a: (a[0].to(torch.int64), *a[1:]), "q_packed"),
+        (lambda a: (a[0], a[1], a[2].double(), *a[3:]), "q_scale"),
+        (lambda a: (*a[:3], a[3].t(), a[4]), "db"),
+        (lambda a: (*a[:3], a[3][:200], a[4][:200]), "cap % 128"),
+        (lambda a: (*a[:4], a[4].bool()), "valid"),
+        (lambda a: (a[0][:, :2].contiguous(), *a[1:]), "do not fit"),
+        (lambda a: (*a[:4], a[4][:128]), "valid"),
+    ],
+)
+def test_blockmax_wrapper_checks_its_inputs(mutate, error):
+    with pytest.raises(ValueError, match=error):
+        hs.blockmax(*mutate(_args()))
+
+
+def test_gather_rescore_wrapper_checks_its_inputs():
+    q_packed, min_lanes, _, db, _ = _args()
+    with pytest.raises(ValueError, match="block_ids"):
+        hs.gather_rescore(q_packed, min_lanes, torch.zeros((4, 2), dtype=torch.int64), db)
+    with pytest.raises(ValueError, match="block_ids"):
+        hs.gather_rescore(q_packed, min_lanes, torch.zeros((3, 2), dtype=torch.int32), db)
+    with pytest.raises(ValueError, match="lanes"):
+        hs.gather_rescore(q_packed, min_lanes, torch.zeros((4, 2), dtype=torch.int32), torch.zeros((128, 9), dtype=torch.int32))
+
+
+def test_wrappers_refuse_devices_without_a_kernel():
+    """Only a CPU tensor takes the plain version: any other device launches
+    the kernel or raises."""
+    args = [t.to("meta") for t in _args()]
+    with pytest.raises(RuntimeError, match="no kernel for device type 'meta'"):
+        hs.blockmax(*args)
+    q_packed, min_lanes, _, db, _ = args
+    with pytest.raises(RuntimeError, match="meta"):
+        hs.gather_rescore(q_packed, min_lanes, torch.zeros((4, 1), dtype=torch.int32, device="meta"), db)
+
+
+# ----------------------------------------------------------------- build
+
+
+def test_build_key_follows_sources_and_nvcc_is_required(tmp_path, monkeypatch):
+    names = [p.name for p in _build.sources()]
+    assert names == ["blockmax.cu", "gather_rescore.cu"]
+    key = _build.build_key()
+    assert key == _build.build_key() and len(key) == 16
+    csrc = tmp_path / "csrc"
+    shutil.copytree(_build.CSRC_DIR, csrc)
+    monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+    assert _build.build_key() == key
+    (csrc / "blockmax.cu").write_text((csrc / "blockmax.cu").read_text() + "\n// changed\n")
+    assert _build.build_key() != key
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _build.build()
+    assert _build.build_log() == ""
+
+
+# ------------------------------------------------------------ processes
+
+
+_BLOCKER = """
+import importlib, importlib.util, pkgutil, sys
+
+class Blocker:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in ("jax", "jaxlib", "platformdirs", "iscc_search_tpu"):
+            raise ImportError("blocked: " + name)
+        return None
+
+sys.meta_path.insert(0, Blocker())
+import iscc_search_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(iscc_search_tpu_torch.__path__, "iscc_search_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
+spec.loader.exec_module(importlib.util.module_from_spec(spec))
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "platformdirs", "iscc_search_tpu"))
+assert not leaked, leaked
+print(len(names), "modules")
+"""
+
+
+def _env(**extra):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env.update(extra)
+    return env
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKER], cwd=REPO, env=_env(PYTHONPATH=str(REPO)),
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert int(proc.stdout.split()[0]) >= 8
+
+
+def test_chip_smoke_fails_without_a_card(tmp_path):
+    """No CUDA device here: the smoke run exits non-zero and prints no result,
+    in the checkout and as a lone copy without the package."""
+    lone = tmp_path / "chip_smoke.py"
+    shutil.copy(REPO / "chip_smoke.py", lone)
+    for cwd in (REPO, tmp_path):
+        proc = subprocess.run(
+            [sys.executable, "chip_smoke.py"], cwd=cwd, env=_env(CUDA_VISIBLE_DEVICES=""),
+            capture_output=True, text=True, timeout=120,
+        )
+        assert proc.returncode != 0
+        assert '"ok"' not in proc.stdout
+
+
+def test_chip_smoke_module_names_the_kernels():
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    for meta in mod.KERNELS.values():
+        assert (REPO / meta["source"]).is_file()
+        path, line = meta["replaces"].split(":")
+        assert (REPO / path).read_text().splitlines()[int(line) - 1].startswith("def _")
