@@ -12,15 +12,23 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 2. build   — the kernels of ``iscc_search_tpu_torch/csrc`` with nvcc;
 3. kernels — each kernel against its plain PyTorch version on the card,
    ``torch.equal``, over all four widths, query tiles, short and long
-   queries, tombstones and fully invalid blocks, then at the shapes of the
-   config-3 partitions (Q=512, 16 candidate blocks per query) with the
-   time of each beside its plain version's;
+   queries, tombstones and fully invalid blocks (the two tensor-core
+   phase-1 entries also against the popc ``blockmax``), then at the shapes
+   of the config-3 partitions (Q=512, 16 candidate blocks per query) with
+   the time of each beside its plain version's (and beside ``blockmax``'s);
 4. slice   — ``DeviceNphdIndex(device="cuda")`` filled through
    ``add_packed``, 1/64 of the keys removed, 4,096 rows appended through
    ``add``, then ``search`` of 512 live rows at k=10: self-match at rank 0
    with score 1.0, the top-10 of 16 sampled queries against brute-force
    ``nphd_scores`` over the whole database, no removed key returned, and
-   both kernels launched by the search.
+   both kernels launched by the search;
+5. twin    — the int8-twin route over the engine's own four partitions:
+   ``build_unpacked_db`` on the card (seconds and bytes printed), then
+   ``blockmax_topk_packedq_impl(..., db_unpacked=twin, unpacked=True)``
+   for the slice's 512 queries at the engine's k and the packed-row
+   tensor-core phase 1 (``blockmax_mma_packed``) on each partition, both
+   kernels launched; results ``torch.equal`` to the route without a twin
+   and to ``blockmax``, with the time of each route.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -41,10 +49,11 @@ import numpy as np
 import torch
 
 from iscc_search_tpu_torch.engine import DeviceNphdIndex
-from iscc_search_tpu_torch.engine.device_index import _cap_rows
+from iscc_search_tpu_torch.engine.device_index import _cap_rows, _pow2ceil
 from iscc_search_tpu_torch.ops import _build
 from iscc_search_tpu_torch.ops import hopper_scan as hs
 from iscc_search_tpu_torch.ops.nphd import nphd_scores
+from iscc_search_tpu_torch.ops.packing import pack_codes
 from iscc_search_tpu_torch.ops.pm1_scan import query_prefix
 
 N_ROWS = 10_485_760  # bench.py headline size
@@ -62,13 +71,24 @@ KERNELS = {
     "blockmax": {
         "source": "iscc_search_tpu_torch/csrc/blockmax.cu",
         "replaces": "iscc_search_tpu/ops/pallas_scan.py:310",
-        "also_replaces": "iscc_search_tpu/ops/pallas_scan.py:410",
+        "also_replaces": ["iscc_search_tpu/ops/pallas_scan.py:410"],
     },
     "gather_rescore": {
         "source": "iscc_search_tpu_torch/csrc/gather_rescore.cu",
         "replaces": "iscc_search_tpu/ops/pallas_scan.py:835",
+        "also_replaces": ["iscc_search_tpu/ops/pallas_scan.py:910"],
+    },
+    "blockmax_mma_unpacked": {
+        "source": "iscc_search_tpu_torch/csrc/blockmax_mma.cu",
+        "replaces": "iscc_search_tpu/ops/pallas_scan.py:127",
+    },
+    "blockmax_mma_packed": {
+        "source": "iscc_search_tpu_torch/csrc/blockmax_mma.cu",
+        "replaces": "iscc_search_tpu/ops/pallas_scan.py:102",
+        "also_replaces": ["iscc_search_tpu/ops/pallas_scan.py:372"],
     },
 }
+PHASE1 = ("blockmax", "blockmax_mma_unpacked", "blockmax_mma_packed")
 
 
 def log(msg):
@@ -159,52 +179,76 @@ def _compare(name, got, want, err):
     err[kernel] = max(err[kernel], float((got - want).abs().max()))
 
 
+def _phase1_outputs(q_packed, min_lanes, q_scale, db, valid, twin):
+    """The three phase-1 kernels and the two plain versions on one input."""
+    args = (q_packed, min_lanes, q_scale)
+    return {
+        "blockmax": lambda: hs.blockmax(*args, db, valid),
+        "blockmax_mma_unpacked": lambda: hs.blockmax_mma_unpacked(*args, twin, valid),
+        "blockmax_mma_packed": lambda: hs.blockmax_mma_packed(*args, db, valid),
+        "blockmax_plain": lambda: hs.blockmax_plain(*args, db, valid),
+        "blockmax_mma_unpacked_plain": lambda: hs.blockmax_unpacked_plain(*args, twin, valid),
+        "blockmax_mma_packed_plain": lambda: hs.blockmax_plain(*args, db, valid),
+    }
+
+
+def _compare_phase1(label, calls, err):
+    """Each phase-1 kernel equals its plain version, and the tensor-core
+    entries equal the popc kernel; returns the popc kernel's output."""
+    popc = calls["blockmax"]()
+    for name in PHASE1:
+        got = popc if name == "blockmax" else calls[name]()
+        _compare(f"{name} {label}", got, calls[name + "_plain"](), err)
+        if name != "blockmax":
+            _compare(f"{name} {label} vs blockmax", got, popc, err)
+    return popc
+
+
 def phase_kernels(rng, dev, part_rows):
-    err = {"blockmax": 0.0, "gather_rescore": 0.0}
+    err = dict.fromkeys(KERNELS, 0.0)
     # Edge cases: every width, Q not a multiple of the 64-query tile, short
     # and long queries, tombstones, a fully invalid block, invalid padding.
     for nbits in (64, 128, 192, 256):
         q_packed, min_lanes, q_scale, db, valid, block_ids = _case(
             rng, dev, nbits, cap=128 * 40, nq=77, n_live=128 * 37 + 5, kk=16, tombstone_every=7, dead_block=3
         )
-        bm = hs.blockmax(q_packed, min_lanes, q_scale, db, valid)
-        _compare(f"blockmax {nbits}-bit edge", bm, hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid), err)
+        twin = hs.build_unpacked_db(db, nbits)
+        bm = _compare_phase1(f"{nbits}-bit edge", _phase1_outputs(q_packed, min_lanes, q_scale, db, valid, twin), err)
         if not bool((bm[:, 3] < -1.0).all()):
             raise AssertionError("a fully invalid block must lie below NEG_SCORE")
         gr = hs.gather_rescore(q_packed, min_lanes, block_ids, db)
         _compare(f"gather_rescore {nbits}-bit edge", gr,
                  hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db), err)
-    log("[kernels] edge cases: kernel == plain for 64/128/192/256-bit (Q=77, tombstones, dead block)")
+    log("[kernels] edge cases: kernel == plain for 64/128/192/256-bit (Q=77, tombstones, dead block); "
+        "blockmax_mma_unpacked == blockmax_mma_packed == blockmax")
 
     # Main-path shapes: the capacities of the config-3 partitions, Q=512, kk=16.
-    ms = {"blockmax": 0.0, "gather_rescore": 0.0}
-    plain_ms = {"blockmax": 0.0, "gather_rescore": 0.0}
+    ms = dict.fromkeys(KERNELS, 0.0)
+    plain_ms = dict.fromkeys(KERNELS, 0.0)
     for lanes, n_part in sorted(part_rows.items()):
         nbits = lanes * 32
         cap = _cap_rows(n_part)
         q_packed, min_lanes, q_scale, db, valid, block_ids = _case(
             rng, dev, nbits, cap=cap, nq=N_QUERIES, n_live=n_part, kk=KK, tombstone_every=TOMBSTONE_EVERY
         )
-        _compare(f"blockmax {nbits}-bit main", hs.blockmax(q_packed, min_lanes, q_scale, db, valid),
-                 hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid), err)
-        _compare(f"gather_rescore {nbits}-bit main", hs.gather_rescore(q_packed, min_lanes, block_ids, db),
-                 hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db), err)
-        t = {
-            "blockmax": cuda_ms(lambda: hs.blockmax(q_packed, min_lanes, q_scale, db, valid), 10),
-            "blockmax_plain": cuda_ms(lambda: hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid), 3),
-            "gather_rescore": cuda_ms(lambda: hs.gather_rescore(q_packed, min_lanes, block_ids, db), 20),
-            "gather_rescore_plain": cuda_ms(lambda: hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db), 5),
-        }
-        for name in ms:
+        twin = hs.build_unpacked_db(db, nbits)
+        calls = _phase1_outputs(q_packed, min_lanes, q_scale, db, valid, twin)
+        calls["gather_rescore"] = lambda: hs.gather_rescore(q_packed, min_lanes, block_ids, db)
+        calls["gather_rescore_plain"] = lambda: hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
+        _compare_phase1(f"{nbits}-bit main", calls, err)
+        _compare(f"gather_rescore {nbits}-bit main", calls["gather_rescore"](), calls["gather_rescore_plain"](), err)
+        t = {name: cuda_ms(calls[name], 20 if name == "gather_rescore" else 10) for name in KERNELS}
+        t.update({f"{name}_plain": cuda_ms(calls[f"{name}_plain"], 5 if name == "gather_rescore" else 3) for name in KERNELS})
+        for name in KERNELS:
             ms[name] += t[name]
             plain_ms[name] += t[name + "_plain"]
         log(f"[kernels] {nbits}-bit cap={cap} Q={N_QUERIES} kk={KK}: kernel == plain; "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
-        del q_packed, min_lanes, q_scale, db, valid, block_ids
-    for name in ms:
+        del q_packed, min_lanes, q_scale, db, valid, block_ids, twin, calls
+    for name in KERNELS:
         log(f"[kernels] {name}: {ms[name]:.4f} ms per Q={N_QUERIES} sweep of all partitions "
             f"(plain {plain_ms[name]:.4f} ms), max |kernel - plain| = {err[name]}")
-    return {name: {"max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name]} for name in ms}
+    return {name: {"max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name]} for name in KERNELS}
 
 
 def phase_slice(rng, dev, codes, lanes):
@@ -296,6 +340,68 @@ def phase_slice(rng, dev, codes, lanes):
     return launches, idx, queries
 
 
+def phase_twin(dev, idx, queries):
+    """The int8-twin route on the engine's own partitions, after the slice's
+    removes and appends: twin build, then the route and the packed-row
+    tensor-core phase 1 with the counters set to 0 just before and read
+    just after, then both held against the route without a twin."""
+    parts = idx._sync_device()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    twins = {lanes: hs.build_unpacked_db(p.packed_dev, lanes * 32) for lanes, p in parts.items()}
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    twin_bytes = sum(t.numel() * t.element_size() for t in twins.values())
+    if twin_bytes != sum(p.cap * lanes * 32 for lanes, p in parts.items()):
+        raise AssertionError(f"twins hold {twin_bytes} bytes, not cap x nbits")
+    caps = {lanes: p.cap for lanes, p in sorted(parts.items())}
+    log(f"[twin] build_unpacked_db of {len(twins)} partitions (capacity per lane count {caps}): {build_s:.4f} s, "
+        f"{twin_bytes / 1e9:.3f} GB on the card ({twin_bytes} bytes = rows x nbits)")
+
+    q_codes, q_lanes = pack_codes(queries)
+    q_packed = torch.from_numpy(q_codes.view(np.int32)).to(dev)
+    q_lanes = torch.from_numpy(q_lanes).to(dev)
+    steps = {}
+    for lanes, p in sorted(parts.items()):
+        nbits = lanes * 32
+        k = min(_pow2ceil(K), p.cap)  # the engine's k for this partition
+        min_lanes, q_scale = query_prefix(q_lanes, nbits)
+        step = (q_packed, q_lanes, p.packed_dev, p.valid_dev, k, nbits)
+        steps[lanes] = {
+            "twin": lambda s=step, t=twins[lanes]: hs.blockmax_topk_packedq_impl(*s, db_unpacked=t, unpacked=True),
+            "packed_mma": lambda s=step, m=min_lanes, q=q_scale: hs.blockmax_mma_packed(s[0], m, q, s[2], s[3]),
+            "no_twin": lambda s=step: hs.blockmax_topk_packedq_impl(*s),
+            "popc": lambda s=step, m=min_lanes, q=q_scale: hs.blockmax(s[0], m, q, s[2], s[3]),
+        }
+
+    for fn in (hs.blockmax_mma_unpacked, hs.blockmax_mma_packed):
+        fn.launches = 0
+    got = {lanes: (st["twin"](), st["packed_mma"]()) for lanes, st in steps.items()}
+    torch.cuda.synchronize()
+    launches = {"blockmax_mma_unpacked": hs.blockmax_mma_unpacked.launches,
+                "blockmax_mma_packed": hs.blockmax_mma_packed.launches}
+    log(f"[twin] kernel launches of the twin route and the packed-row phase 1: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the twin route never launched the {name} kernel")
+
+    for lanes, st in steps.items():
+        (scores, rows), bm = got[lanes]
+        want_scores, want_rows = st["no_twin"]()
+        if not (torch.equal(scores, want_scores) and torch.equal(rows, want_rows)):
+            raise AssertionError(f"{lanes * 32}-bit partition: the twin route differs from the route without a twin")
+        if not torch.equal(bm, st["popc"]()):
+            raise AssertionError(f"{lanes * 32}-bit partition: blockmax_mma_packed differs from blockmax")
+        t = {name: cuda_ms(fn, 5) for name, fn in st.items()}
+        log(f"[twin] {lanes * 32}-bit cap={parts[lanes].cap} Q={N_QUERIES} k={min(_pow2ceil(K), parts[lanes].cap)}: "
+            "twin route == route without twin, blockmax_mma_packed == blockmax; "
+            + ", ".join(f"{name} {v:.4f} ms" for name, v in t.items()))
+    log(f"[twin] all {len(steps)} partitions ({sum(p.cap for p in parts.values())} rows, "
+        f"{sum(p.count for p in parts.values())} filled): the int8-twin route equals the route without a twin")
+    del twins, got, steps
+    return launches
+
+
 def phase_profile(idx, queries, reps=5):
     """Where one warm search's time goes.
 
@@ -369,6 +475,7 @@ def main():
     log(f"[data] {N_ROWS} codes, rows per lane count: {part_rows}")
     stats = phase_kernels(rng, dev, part_rows)
     launches, idx, queries = phase_slice(rng, dev, codes, lanes)
+    launches.update(phase_twin(dev, idx, queries))
     if args.profile:
         phase_profile(idx, queries)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")

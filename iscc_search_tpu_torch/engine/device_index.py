@@ -95,16 +95,36 @@ class PackedCodeIndex:
     metric = "nphd"
     key_bytes = 8
 
-    def __init__(self, path=None, max_dim=256, recall_target=None, scan_kernel="auto", mesh=None, device="cuda"):
-        # type: (str | Path | None, int, float | None, str, object, str | torch.device) -> None
+    @property
+    def ROW_BYTES(self):
+        # type: () -> int
+        """Per-row storage estimate for shard sizing: key + lanes + nlanes + valid."""
+        return self.key_bytes + MAX_LANES * 4 + 4 + 1
+
+    def __init__(
+        self,
+        path=None,
+        max_dim=256,
+        shard_size=512 * 1024 * 1024,
+        ndim=None,
+        recall_target=None,
+        scan_kernel="auto",
+        mesh=None,
+        device="cuda",
+    ):
+        # type: (str | Path | None, int, int, int | None, float | None, str, object, str | torch.device) -> None
         """
-        Create an empty in-memory index.
+        Create an empty in-memory index. The parameters up to ``mesh`` are
+        the JAX engine's, in its order.
 
         :param path: index directory; only a directory without a saved index
             is accepted (loading and saving are not ported yet)
         :param max_dim: maximum code width in bits
+        :param shard_size: bytes per sealed segment; sets ``shard_rows`` as
+            the JAX engine does (segments come with persistence)
+        :param ndim: fixed code width in bits for the hamming metric
         :param recall_target: accepted for API parity and served EXACTLY —
-            exact results meet any recall target
+            exact results meet any recall target; ``>= 1.0`` becomes None
         :param scan_kernel: "auto" only (the Hopper kernels on CUDA, their
             plain versions on the CPU)
         :param mesh: must be None (single device)
@@ -119,8 +139,10 @@ class PackedCodeIndex:
         if self.path is not None and (self.path / "state.json").exists():
             raise NotImplementedError(f"loading a saved index is not ported yet ({_TODO_PERSISTENCE})")
         self.max_dim = max_dim
+        self.ndim = ndim
         self.max_lanes = MAX_LANES
-        self.recall_target = recall_target
+        self.shard_rows = max(1024, shard_size // self.ROW_BYTES)
+        self.recall_target = recall_target if (recall_target is None or recall_target < 1.0) else None
         self.scan_kernel = scan_kernel
         self.mesh = None
         self.device = torch.device(device)

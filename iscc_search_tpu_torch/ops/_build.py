@@ -4,7 +4,9 @@ Build and load the Hopper kernels of ``iscc_search_tpu_torch/csrc``.
 The CUDA sources expose a plain C interface, so they compile with ``nvcc``
 alone — no PyTorch headers — into one shared library that ``ctypes`` loads
 (seconds per build, where a ``torch.utils.cpp_extension`` build of a file
-that includes PyTorch's headers takes minutes). The library is built at
+that includes PyTorch's headers takes minutes). Each source compiles in its
+own ``nvcc`` process, all started together, and one more links them. The
+library is built at
 first use into ``build/torch_kernels/<key>/`` beside the package (a
 git-ignored directory), keyed by a hash of the sources and flags, so a
 changed source rebuilds and an unchanged one loads the existing library.
@@ -31,7 +33,7 @@ LIB_NAME = "libiscc_search_kernels.so"
 # the build log.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -74,7 +76,8 @@ def build():
     """Compile the kernels unless a library with the current key exists.
 
     Concurrent builders (several processes at first use) each compile into
-    a private temporary file and publish it with an atomic rename.
+    a private temporary directory and publish the library with an atomic
+    rename.
 
     :return: path of the shared library
     """
@@ -82,19 +85,22 @@ def build():
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file():
         return lib_path
+    nvcc = nvcc_path()
     out_dir.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=str(out_dir), prefix="lib", suffix=".so.tmp")
-    os.close(fd)
-    try:
-        cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-        (out_dir / "build.log").write_text(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    with tempfile.TemporaryDirectory(dir=str(out_dir), prefix="tmp") as tmp:
+        objects = {src: str(Path(tmp) / f"{src.stem}.o") for src in sources()}
+        compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in objects.items()]
+        link_cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(Path(tmp) / LIB_NAME), *objects.values()]
+        log = []
+        for batch in (compile_cmds, [link_cmd]):  # every source at once, then the link
+            procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for c in batch]
+            outputs = [proc.communicate()[0] for proc in procs]
+            log += [" ".join(cmd) + "\n" + out for cmd, out in zip(batch, outputs)]
+            (out_dir / "build.log").write_text("".join(log))
+            for proc, out in zip(procs, outputs):
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
+        os.replace(Path(tmp) / LIB_NAME, lib_path)
     return lib_path
 
 

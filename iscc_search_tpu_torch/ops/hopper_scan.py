@@ -1,17 +1,25 @@
 """
-Exact two-phase NPHD top-k over one code-length partition, through two
+Exact two-phase NPHD top-k over one code-length partition, through
 hand-written Hopper kernels (port of the Pallas path of
 ``iscc_search_tpu/ops/pallas_scan.py``).
 
-- :func:`blockmax` (phase 1, ``csrc/blockmax.cu``) replaces the Pallas
-  kernels ``_scan_kernel_bitplane`` and ``_scan_kernel_unpacked_perm``.
+- :func:`blockmax` (phase 1, XOR + popc, ``csrc/blockmax.cu``) replaces the
+  Pallas kernels ``_scan_kernel_bitplane`` and ``_scan_kernel_unpacked_perm``.
+- :func:`blockmax_mma_unpacked` (phase 1 on the int8 tensor cores from the
+  ±1 int8 twin of :func:`build_unpacked_db`, ``csrc/blockmax_mma.cu``)
+  replaces ``_scan_kernel_unpacked``.
+- :func:`blockmax_mma_packed` (the same kernel, rows unpacked from the
+  packed partition inside it) replaces ``_scan_kernel_packed`` and
+  ``_scan_kernel_packed_perm``.
 - :func:`gather_rescore` (phase 3, ``csrc/gather_rescore.cu``) replaces
-  ``_gather_rescore_kernel``.
+  ``_gather_rescore_kernel`` and ``_gather_rescore_packed_kernel``: it reads
+  the packed rows, and returns the candidates in row order.
 
-Both read the compact packed partition ``(cap, lanes)`` int32 directly; the
-bit-transposed, permuted and int8 twins of the TPU engine existed for its
-matrix unit and tiling and are not needed here. Validity reaches phase 1 as
-an ``(cap,)`` uint8 mask in original row order.
+The three phase-1 wrappers compute one function, bit for bit. The packed
+partition ``(cap, lanes)`` int32 is the resting layout; the TPU engine's
+bit-transposed and permuted twins existed for its matrix unit and tiling
+and are not ported. Validity reaches phase 1 as a ``(cap,)`` uint8 mask in
+original row order.
 
 Each wrapper checks device, dtype, shape and contiguity, then takes its
 plain PyTorch version (``*_plain``) for tensors on the CPU and launches its
@@ -38,13 +46,17 @@ from iscc_search_tpu_torch.ops.pm1_scan import (
 )
 
 BLOCK = 128  # rows per block-max cell
-PLAIN_CHUNK_ROWS = 65536  # rows per step of blockmax_plain (bounds its memory)
+PLAIN_CHUNK_ROWS = 65536  # rows per step of the plain phase 1 (bounds its memory)
+UNPACK_CHUNK_ROWS = 65536  # rows per step of build_unpacked_db (bounds its memory)
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# q, q_stride, min_lanes, q_scale, nq, db, valid, nblocks, lanes, out, stream
+_PHASE1 = (_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P)
 _SIGNATURES = {
-    # q, q_stride, min_lanes, q_scale, nq, db, valid, nblocks, lanes, out, stream
-    "iscc_blockmax": (_P, _I, _P, _P, _I, _P, _P, _I, _I, _P, _P),
+    "iscc_blockmax": _PHASE1,
+    "iscc_blockmax_mma_unpacked": _PHASE1,
+    "iscc_blockmax_mma_packed": _PHASE1,
     # q, q_stride, min_lanes, block_ids, nq, kk, db, lanes, out, stream
     "iscc_gather_rescore": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _P),
 }
@@ -100,30 +112,91 @@ def _check_db(db):
 # ----------------------------------------------------------------- phase 1
 
 
-def blockmax_plain(q_packed, min_lanes, q_scale, db, valid):
+def build_unpacked_db(db_packed, nbits):
+    # type: (torch.Tensor, int) -> torch.Tensor
+    """
+    The ±1 int8 twin of a packed partition (``build_unpacked_db`` of the
+    JAX package with ``permute=False``), built in row chunks of
+    ``UNPACK_CHUNK_ROWS`` on ``db_packed``'s device with plain torch ops.
+
+    :param db_packed: (cap, >= nbits // 32) int32 packed rows
+    :return: (cap, nbits) int8, column c = bit c of the row in
+        :func:`unpack_pm1` order (+1 set, -1 clear)
+    """
+    cap = db_packed.shape[0]
+    out = torch.empty((cap, nbits), dtype=torch.int8, device=db_packed.device)
+    for s in range(0, cap, UNPACK_CHUNK_ROWS):
+        out[s : s + UNPACK_CHUNK_ROWS] = unpack_pm1(db_packed[s : s + UNPACK_CHUNK_ROWS], nbits).to(torch.int8)
+    return out
+
+
+def _blockmax_rows_plain(q_packed, min_lanes, q_scale, valid, nbits, rows_pm1):
     # type: (...) -> torch.Tensor
-    """Plain PyTorch phase 1: unpack to ±1, f32 matmul (exact for integer
-    dots of at most 256 terms), additive -65536 penalty on invalid rows,
-    128-row max, then ``0.5 + m * q_scale`` rounded once to float32 (the
-    float64 product and sum are exact), as the kernel's ``__fmaf_rn`` and
-    the JAX phase-1 kernels round it. Row chunks bound the memory."""
-    cap, lanes = db.shape
-    nbits = lanes * 32
+    """Plain phase 1 over ``rows_pm1(s, e)``, the (e - s, nbits) f32 ±1
+    rows [s, e): f32 matmul (exact for integer dots of at most 256 terms),
+    additive -65536 penalty on invalid rows, 128-row max, then
+    ``0.5 + m * q_scale`` rounded once to float32 (the float64 product and
+    sum are exact), as the kernels' ``__fmaf_rn`` and the JAX phase-1
+    kernels round it. Row chunks bound the memory."""
+    cap = valid.shape[0]
     q_pm1 = masked_queries(q_packed, min_lanes, nbits)
     pen = torch.where(valid.to(torch.bool), 0.0, -65536.0)
-    out = torch.empty((q_packed.shape[0], cap // BLOCK), dtype=torch.float32, device=db.device)
+    out = torch.empty((q_packed.shape[0], cap // BLOCK), dtype=torch.float32, device=valid.device)
     for s in range(0, cap, PLAIN_CHUNK_ROWS):
         e = min(cap, s + PLAIN_CHUNK_ROWS)
-        dot = q_pm1 @ unpack_pm1(db[s:e], nbits).T + pen[None, s:e]
+        dot = q_pm1 @ rows_pm1(s, e).T + pen[None, s:e]
         m = dot.reshape(dot.shape[0], (e - s) // BLOCK, BLOCK).amax(dim=2)
         out[:, s // BLOCK : e // BLOCK] = (0.5 + m.double() * q_scale.double()[:, None]).float()
+    return out
+
+
+def blockmax_plain(q_packed, min_lanes, q_scale, db, valid):
+    # type: (...) -> torch.Tensor
+    """Plain PyTorch phase 1 from the packed rows (unpacked to ±1 f32), the
+    plain version of :func:`blockmax` and :func:`blockmax_mma_packed`."""
+    nbits = db.shape[1] * 32
+    return _blockmax_rows_plain(q_packed, min_lanes, q_scale, valid, nbits, lambda s, e: unpack_pm1(db[s:e], nbits))
+
+
+def blockmax_unpacked_plain(q_packed, min_lanes, q_scale, db_unpacked, valid):
+    # type: (...) -> torch.Tensor
+    """Plain PyTorch phase 1 from the ±1 int8 twin (as f32), the plain
+    version of :func:`blockmax_mma_unpacked`."""
+    return _blockmax_rows_plain(
+        q_packed, min_lanes, q_scale, valid, db_unpacked.shape[1], lambda s, e: db_unpacked[s:e].float()
+    )
+
+
+def _phase1(wrapper, entry, plain, q_packed, min_lanes, q_scale, db, valid, lanes):
+    # type: (...) -> torch.Tensor
+    """Shared checks, routing and launch of the phase-1 wrappers: ``plain``
+    on the CPU, the C entry ``entry`` on CUDA (counted on ``wrapper``)."""
+    cap = db.shape[0]
+    _check_queries(q_packed, min_lanes, lanes)
+    _check(q_scale, "q_scale", torch.float32, 1)
+    _check(valid, "valid", torch.uint8, 1)
+    if q_scale.shape[0] != q_packed.shape[0] or valid.shape[0] != cap:
+        raise ValueError("q_scale must be (Q,) and valid (cap,)")
+    if _route([q_packed, min_lanes, q_scale, db, valid]) == "cpu":
+        return plain(q_packed, min_lanes, q_scale, db, valid)
+    nq = q_packed.shape[0]
+    out = torch.empty((nq, cap // BLOCK), dtype=torch.float32, device=db.device)
+    with torch.cuda.device(db.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = _entry(entry)(
+            q_packed.data_ptr(), q_packed.stride(0), min_lanes.data_ptr(), q_scale.data_ptr(), nq,
+            db.data_ptr(), valid.data_ptr(), cap // BLOCK, lanes, out.data_ptr(), stream,
+        )
+    if err:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: cudaError {err}")
+    wrapper.launches += 1
     return out
 
 
 def blockmax(q_packed, min_lanes, q_scale, db, valid):
     # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor) -> torch.Tensor
     """
-    Phase-1 block maxima of one partition.
+    Phase-1 block maxima of one partition (XOR + popc kernel).
 
     :param q_packed: (Q, >= lanes) int32 packed queries
     :param min_lanes: (Q,) int32 common-prefix lanes, <= lanes
@@ -134,29 +207,48 @@ def blockmax(q_packed, min_lanes, q_scale, db, valid):
         [128b, 128b+128) of ``0.5 + dot * q_scale``; a block with no valid
         row lies below NEG_SCORE
     """
-    cap, lanes = _check_db(db)
-    _check_queries(q_packed, min_lanes, lanes)
-    _check(q_scale, "q_scale", torch.float32, 1)
-    _check(valid, "valid", torch.uint8, 1)
-    if q_scale.shape[0] != q_packed.shape[0] or valid.shape[0] != cap:
-        raise ValueError("q_scale must be (Q,) and valid (cap,)")
-    if _route([q_packed, min_lanes, q_scale, db, valid]) == "cpu":
-        return blockmax_plain(q_packed, min_lanes, q_scale, db, valid)
-    nq = q_packed.shape[0]
-    out = torch.empty((nq, cap // BLOCK), dtype=torch.float32, device=db.device)
-    with torch.cuda.device(db.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry("iscc_blockmax")(
-            q_packed.data_ptr(), q_packed.stride(0), min_lanes.data_ptr(), q_scale.data_ptr(), nq,
-            db.data_ptr(), valid.data_ptr(), cap // BLOCK, lanes, out.data_ptr(), stream,
-        )
-    if err:
-        raise RuntimeError(f"blockmax kernel launch failed: cudaError {err}")
-    blockmax.launches += 1
-    return out
+    _, lanes = _check_db(db)
+    return _phase1(blockmax, "iscc_blockmax", blockmax_plain, q_packed, min_lanes, q_scale, db, valid, lanes)
 
 
 blockmax.launches = 0
+
+
+def blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid):
+    # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor) -> torch.Tensor
+    """:func:`blockmax` on the int8 tensor cores, the packed rows unpacked
+    to ±1 int8 inside the kernel. Same arguments, same result bit for bit."""
+    _, lanes = _check_db(db)
+    return _phase1(
+        blockmax_mma_packed, "iscc_blockmax_mma_packed", blockmax_plain, q_packed, min_lanes, q_scale, db, valid, lanes
+    )
+
+
+blockmax_mma_packed.launches = 0
+
+
+def blockmax_mma_unpacked(q_packed, min_lanes, q_scale, db_unpacked, valid):
+    # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor) -> torch.Tensor
+    """:func:`blockmax` on the int8 tensor cores from the ±1 int8 twin.
+
+    :param db_unpacked: (cap, nbits) int8 ±1 twin (:func:`build_unpacked_db`),
+        cap % 128 == 0, nbits a multiple of 32 up to 256, 16-byte aligned
+    :return: as :func:`blockmax` on the packed rows the twin was built from
+    """
+    _check(db_unpacked, "db_unpacked", torch.int8, 2)
+    cap, nbits = db_unpacked.shape
+    if cap % BLOCK or nbits % 32 or not 32 <= nbits <= 32 * MAX_LANES or db_unpacked.data_ptr() % 16:
+        raise ValueError(
+            f"db_unpacked must be a 16-byte aligned (cap, nbits) twin with cap % {BLOCK} == 0 and "
+            f"nbits in 32..{32 * MAX_LANES} a multiple of 32, got {tuple(db_unpacked.shape)}"
+        )
+    return _phase1(
+        blockmax_mma_unpacked, "iscc_blockmax_mma_unpacked", blockmax_unpacked_plain,
+        q_packed, min_lanes, q_scale, db_unpacked, valid, nbits // 32,
+    )
+
+
+blockmax_mma_unpacked.launches = 0
 
 
 # ----------------------------------------------------------------- phase 3
@@ -211,7 +303,7 @@ gather_rescore.launches = 0
 # ------------------------------------------------------- exact two-phase top-k
 
 
-def blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k):
+def blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k, db_unpacked=None, unpacked=False):
     # type: (...) -> tuple[torch.Tensor, torch.Tensor]
     """
     Exact top-k of one partition: phase 1 block maxima -> hierarchical top-k
@@ -220,13 +312,24 @@ def blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k):
 
     :param db_packed: (cap, lanes) int32 packed partition
     :param db_valid: (cap,) uint8 validity
+    :param db_unpacked: optional (cap, nbits) int8 ±1 twin of ``db_packed``
+        (:func:`build_unpacked_db`)
+    :param unpacked: run phase 1 from ``db_unpacked`` on the tensor cores
+        (:func:`blockmax_mma_unpacked`) instead of :func:`blockmax`; the
+        block maxima are the same bit for bit. Phase 3 reads the packed rows
+        either way.
     :return: (scores (Q, k) float32 desc, rows (Q, k) int32, -1 and NEG_SCORE
         where fewer than k valid rows exist)
     """
+    if unpacked and db_unpacked is None:
+        raise ValueError("unpacked=True requires db_unpacked")
     n = db_packed.shape[0]
     q = q_packed.shape[0]
     total_blocks = n // BLOCK
-    block_max = blockmax(q_packed, min_lanes, q_scale, db_packed, db_valid)
+    if unpacked:
+        block_max = blockmax_mma_unpacked(q_packed, min_lanes, q_scale, db_unpacked, db_valid)
+    else:
+        block_max = blockmax(q_packed, min_lanes, q_scale, db_packed, db_valid)
     kk = min(k, total_blocks)
     top_blocks = topk_blocks_hier(block_max, kk)  # (Q, kk) int64
     offsets = torch.arange(BLOCK, device=db_packed.device)
@@ -247,7 +350,7 @@ def blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k):
     return fs, fi
 
 
-def blockmax_topk_packedq_impl(q_packed, q_lanes, db_packed, db_valid, k, nbits):
+def blockmax_topk_packedq_impl(q_packed, q_lanes, db_packed, db_valid, k, nbits, db_unpacked=None, unpacked=False):
     # type: (...) -> tuple[torch.Tensor, torch.Tensor]
     """Query prep (common-prefix lanes and scale) + :func:`blockmax_topk_impl`
     for packed queries — the engine's per-partition search step.
@@ -258,4 +361,6 @@ def blockmax_topk_packedq_impl(q_packed, q_lanes, db_packed, db_valid, k, nbits)
     if db_packed.shape[1] * 32 != nbits:
         raise ValueError(f"db_packed {tuple(db_packed.shape)} is not a {nbits}-bit partition")
     min_lanes, q_scale = query_prefix(q_lanes, nbits)
-    return blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k)
+    return blockmax_topk_impl(
+        q_packed, min_lanes, q_scale, db_packed, db_valid, k, db_unpacked=db_unpacked, unpacked=unpacked
+    )

@@ -12,6 +12,8 @@ same score multiset per query (to one unit in the last place, see
 no tombstoned key; the order of tied keys is not compared.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -249,6 +251,34 @@ def test_incremental_add_and_remove_match_the_jax_engine(pallas_engine, data):
 def test_cap_rows_equals_the_jax_engine():
     for n in (0, 1, 8191, 8193, 65536, 65537, 2_620_000, 4_194_304, 10_485_760):
         assert di._cap_rows(n) == jax_di._cap_rows(n)
+
+
+@pytest.mark.parametrize(
+    "args",
+    [
+        (256, 512 * 1024 * 1024, None, None),
+        (128, 1 << 20, 64, 1.0),
+        (64, 1000, 128, 0.9),
+        (256, 7 * 1024 * 1024, None, 1.5),
+    ],
+)
+def test_constructor_takes_the_jax_parameters_in_order(tmp_path, args):
+    """``path, max_dim, shard_size, ndim, recall_target, scan_kernel, mesh``
+    as in the JAX engine (the port adds ``device`` after them): the same
+    positional call means the same thing on both."""
+    jax_names = list(inspect.signature(jax_di.PackedCodeIndex.__init__).parameters)
+    port_names = list(inspect.signature(di.PackedCodeIndex.__init__).parameters)
+    assert port_names[: port_names.index("mesh") + 1] == jax_names[: jax_names.index("mesh") + 1]
+    assert port_names[port_names.index("mesh") + 1 :] == ["device"]
+    jx = jax_di.DeviceNphdIndex(tmp_path / "jax", *args)
+    pt = DeviceNphdIndex(tmp_path / "port", *args, device="cpu")
+    try:
+        for attr in ("max_dim", "ndim", "shard_rows", "recall_target", "scan_kernel", "mesh"):
+            assert getattr(pt, attr) == getattr(jx, attr), attr
+        assert pt.ROW_BYTES == jx.ROW_BYTES
+    finally:
+        jx.close()
+    assert DeviceNphdIndex(device="cpu").shard_rows == max(1024, 512 * 1024 * 1024 // pt.ROW_BYTES)
 
 
 def test_add_packed_checks_its_inputs():

@@ -72,6 +72,44 @@ def test_blockmax_kernel_equals_plain(dev, nbits):
 
 
 @pytest.mark.parametrize("nbits", WIDTHS)
+def test_mma_kernels_equal_plain_and_blockmax(dev, nbits):
+    """Both tensor-core entries against their plain versions and against the
+    popc kernel, ``torch.equal``: Q=77 (a ragged query tile), short and long
+    queries, tombstones, padding and an all-invalid block."""
+    q_packed, min_lanes, q_scale, db, valid, _ = _case(dev, nbits, seed=nbits + 2)
+    twin = hs.build_unpacked_db(db, nbits)
+    assert twin.shape == (db.shape[0], nbits) and twin.dtype == torch.int8
+    popc = hs.blockmax(q_packed, min_lanes, q_scale, db, valid)
+    before = hs.blockmax_mma_unpacked.launches, hs.blockmax_mma_packed.launches
+    got_u = hs.blockmax_mma_unpacked(q_packed, min_lanes, q_scale, twin, valid)
+    got_p = hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid)
+    torch.cuda.synchronize()
+    assert (hs.blockmax_mma_unpacked.launches, hs.blockmax_mma_packed.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(got_u, hs.blockmax_unpacked_plain(q_packed, min_lanes, q_scale, twin, valid))
+    assert torch.equal(got_p, hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid))
+    assert torch.equal(got_u, popc) and torch.equal(got_p, popc)
+    assert bool((got_u[:, 3] < -1.0).all())  # the all-invalid block
+
+
+@pytest.mark.parametrize("nbits,k", [(64, 10), (192, 7), (256, 16)])
+def test_twin_route_equals_the_route_without_a_twin(dev, nbits, k):
+    """``blockmax_topk_packedq_impl`` with ``unpacked=True`` runs phase 1 on
+    the tensor cores; the block maxima are identical, so are the results."""
+    rng = np.random.default_rng(nbits + k)
+    cap = 128 * 300
+    db = torch.from_numpy(rng.integers(0, 2**32, (cap, nbits // 32), dtype=np.uint32).view(np.int32)).to(dev)
+    valid = torch.from_numpy((rng.random(cap) > 0.1).astype(np.uint8)).to(dev)
+    q_codes, q_lanes = _random_codes(rng, 77)
+    q_packed, q_lanes = torch.from_numpy(q_codes.view(np.int32)).to(dev), torch.from_numpy(q_lanes).to(dev)
+    twin = hs.build_unpacked_db(db, nbits)
+    before = hs.blockmax_mma_unpacked.launches
+    got = hs.blockmax_topk_packedq_impl(q_packed, q_lanes, db, valid, k, nbits, db_unpacked=twin, unpacked=True)
+    assert hs.blockmax_mma_unpacked.launches == before + 1
+    want = hs.blockmax_topk_packedq_impl(q_packed, q_lanes, db, valid, k, nbits)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("nbits", WIDTHS)
 def test_gather_rescore_kernel_equals_plain(dev, nbits):
     q_packed, min_lanes, _, db, _, block_ids = _case(dev, nbits, seed=nbits + 1)
     before = hs.gather_rescore.launches
@@ -87,9 +125,8 @@ def test_kernels_take_a_strided_query_matrix(dev):
     q_packed, min_lanes, q_scale, db, valid, block_ids = _case(dev, 64, seed=3)
     assert q_packed.shape[1] == 8 and db.shape[1] == 2
     narrow = q_packed[:, :2].contiguous()
-    assert torch.equal(
-        hs.blockmax(q_packed, min_lanes, q_scale, db, valid), hs.blockmax(narrow, min_lanes, q_scale, db, valid)
-    )
+    for phase1 in (hs.blockmax, hs.blockmax_mma_packed):
+        assert torch.equal(phase1(q_packed, min_lanes, q_scale, db, valid), phase1(narrow, min_lanes, q_scale, db, valid))
     assert torch.equal(
         hs.gather_rescore(q_packed, min_lanes, block_ids, db), hs.gather_rescore(narrow, min_lanes, block_ids, db)
     )

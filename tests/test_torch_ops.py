@@ -296,21 +296,59 @@ def _args(nbits=128, cap=256, nq=4):
     return _t(q_codes[:nq]), min_lanes, q_scale, _t(packed), _t(valid)
 
 
+# Bad inputs of the phase-1 wrappers that read packed rows, and the error each raises.
+_PACKED_PHASE1_BAD_INPUTS = [
+    (lambda a: (a[0].to(torch.int64), *a[1:]), "q_packed"),
+    (lambda a: (a[0], a[1], a[2].double(), *a[3:]), "q_scale"),
+    (lambda a: (*a[:3], a[3].t(), a[4]), "db"),
+    (lambda a: (*a[:3], a[3][:200], a[4][:200]), "cap % 128"),
+    (lambda a: (*a[:4], a[4].bool()), "valid"),
+    (lambda a: (a[0][:, :2].contiguous(), *a[1:]), "do not fit"),
+    (lambda a: (*a[:4], a[4][:128]), "valid"),
+]
+
+
+@pytest.mark.parametrize("mutate,error", _PACKED_PHASE1_BAD_INPUTS)
+def test_blockmax_wrapper_checks_its_inputs(mutate, error):
+    with pytest.raises(ValueError, match=error):
+        hs.blockmax(*mutate(_args()))
+
+
 @pytest.mark.parametrize(
     "mutate,error",
     [
         (lambda a: (a[0].to(torch.int64), *a[1:]), "q_packed"),
         (lambda a: (a[0], a[1], a[2].double(), *a[3:]), "q_scale"),
-        (lambda a: (*a[:3], a[3].t(), a[4]), "db"),
+        (lambda a: (*a[:3], a[3].float(), a[4]), "db_unpacked"),
         (lambda a: (*a[:3], a[3][:200], a[4][:200]), "cap % 128"),
-        (lambda a: (*a[:4], a[4].bool()), "valid"),
-        (lambda a: (a[0][:, :2].contiguous(), *a[1:]), "do not fit"),
+        (lambda a: (*a[:3], a[3][:, :48].contiguous(), a[4]), "multiple of 32"),
+        (lambda a: (*a[:3], torch.zeros((128, 288), dtype=torch.int8), a[4][:128]), "32..256"),
+        (lambda a: (*a[:3], torch.zeros(256 * 128 + 1, dtype=torch.int8)[1:].view(256, 128), a[4]), "aligned"),
         (lambda a: (*a[:4], a[4][:128]), "valid"),
+        (lambda a: (a[0][:, :2].contiguous(), *a[1:]), "do not fit"),
     ],
 )
-def test_blockmax_wrapper_checks_its_inputs(mutate, error):
+def test_blockmax_mma_unpacked_wrapper_checks_its_inputs(mutate, error):
+    q_packed, min_lanes, q_scale, db, valid = _args()
+    args = (q_packed, min_lanes, q_scale, hs.build_unpacked_db(db, 128), valid)
     with pytest.raises(ValueError, match=error):
-        hs.blockmax(*mutate(_args()))
+        hs.blockmax_mma_unpacked(*mutate(args))
+
+
+@pytest.mark.parametrize(
+    "mutate,error", [*_PACKED_PHASE1_BAD_INPUTS, (lambda a: (a[0], a[1][:3], *a[2:]), "do not fit")]
+)
+def test_blockmax_mma_packed_wrapper_checks_its_inputs(mutate, error):
+    with pytest.raises(ValueError, match=error):
+        hs.blockmax_mma_packed(*mutate(_args()))
+
+
+def test_mma_wrappers_refuse_devices_without_a_kernel():
+    q_packed, min_lanes, q_scale, db, valid = [t.to("meta") for t in _args()]
+    with pytest.raises(RuntimeError, match="no kernel for device type 'meta'"):
+        hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid)
+    with pytest.raises(RuntimeError, match="no kernel for device type 'meta'"):
+        hs.blockmax_mma_unpacked(q_packed, min_lanes, q_scale, torch.empty((256, 128), dtype=torch.int8, device="meta"), valid)
 
 
 def test_gather_rescore_wrapper_checks_its_inputs():
@@ -339,7 +377,7 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 def test_build_key_follows_sources_and_nvcc_is_required(tmp_path, monkeypatch):
     names = [p.name for p in _build.sources()]
-    assert names == ["blockmax.cu", "gather_rescore.cu"]
+    assert names == ["blockmax.cu", "blockmax_mma.cu", "gather_rescore.cu"]
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
     csrc = tmp_path / "csrc"
@@ -354,6 +392,56 @@ def test_build_key_follows_sources_and_nvcc_is_required(tmp_path, monkeypatch):
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build()
     assert _build.build_log() == ""
+
+
+_FAKE_NVCC = """#!{python}
+import sys, time
+from pathlib import Path
+args = sys.argv[1:]
+out = args[args.index("-o") + 1]
+if "-c" in args:
+    # A compile waits until every compile has started: serial compiles fail.
+    started = Path({started!r})
+    (started / Path(args[-1]).name).touch()
+    deadline = time.monotonic() + 60
+    while len(list(started.iterdir())) < {n}:
+        if time.monotonic() > deadline:
+            print("error: the compiles did not run at once")
+            sys.exit(3)
+        time.sleep(0.01)
+    if {fail!r} in args[-1]:
+        print("error: " + args[-1])
+        sys.exit(2)
+open(out, "w").write(" ".join(args))
+print("ptxas info: Used 32 registers for " + out)
+"""
+
+
+@pytest.mark.parametrize("fail", ["", "blockmax_mma.cu"])
+def test_build_compiles_every_source_at_once_then_links(tmp_path, monkeypatch, fail):
+    """One nvcc per source, started together, then one link; the log keeps
+    every command's output, and a failed compile raises with its output."""
+    fake = tmp_path / "bin" / "nvcc"
+    fake.parent.mkdir()
+    started = tmp_path / "started"
+    started.mkdir()
+    n = len(_build.sources())
+    fake.write_text(_FAKE_NVCC.format(python=sys.executable, started=str(started), n=n, fail=fail or "no such source"))
+    fake.chmod(0o755)
+    monkeypatch.setenv("PATH", str(fake.parent))
+    monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
+    if fail:
+        with pytest.raises(RuntimeError, match="(?s)nvcc failed.*error: .*blockmax_mma.cu"):
+            _build.build()
+        assert not (tmp_path / "build" / _build.build_key() / _build.LIB_NAME).exists()
+        return
+    lib = _build.build()
+    link = lib.read_text().split()
+    assert "-shared" in link and sum(arg.endswith(".o") for arg in link) == n
+    log = _build.build_log()
+    assert log.count("-c -o") == n and log.count("Used 32 registers") == n + 1
+    assert _build.build() == lib  # built once per key
+    assert sorted(p.name for p in lib.parent.iterdir()) == ["build.log", _build.LIB_NAME]
 
 
 # ------------------------------------------------------------ processes
@@ -416,5 +504,7 @@ def test_chip_smoke_module_names_the_kernels():
     spec.loader.exec_module(mod)
     for meta in mod.KERNELS.values():
         assert (REPO / meta["source"]).is_file()
-        path, line = meta["replaces"].split(":")
-        assert (REPO / path).read_text().splitlines()[int(line) - 1].startswith("def _")
+        for ref in [meta["replaces"], *meta.get("also_replaces", [])]:
+            path, line = ref.split(":")
+            assert (REPO / path).read_text().splitlines()[int(line) - 1].startswith("def _")
+    assert set(mod.PHASE1) <= set(mod.KERNELS)
