@@ -28,7 +28,24 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    for the slice's 512 queries at the engine's k and the packed-row
    tensor-core phase 1 (``blockmax_mma_packed``) on each partition, both
    kernels launched; results ``torch.equal`` to the route without a twin
-   and to ``blockmax``, with the time of each route.
+   and to ``blockmax``, with the time of each route;
+6. experiments — the phase-1 experiment entry points of
+   ``iscc_search_tpu_torch.experiments`` (TPU kernels 8-11): each kernel
+   against its plain version (``torch.equal``) on edge cases (Q=77,
+   192-bit prefixes, tombstones, a dead block; kernels 10 and 11 also
+   against ``blockmax`` on the same packed rows), then each module's
+   ``main()`` at the script's own size with the counters set to 0 just
+   before and read just after, then each kernel against its plain version
+   at that size, with the plain version's time.
+
+Each kernel's line in the JSON summary carries ``bound_ms``, the least time
+the card could take for the same work: the larger of its bytes (each input
+read once, each output written once) over 3.35 TB/s and its operations over
+the peak rate of their type (int8 1,979 TOP/s, for the integer dots of
+every kernel-8 variant too, whatever unit it runs them on; ``popc``
+at 16 per clock per SM at the card's maximum SM clock, the CUDA C++
+Programming Guide's throughput for compute capability 9.0; int4 MACs at the
+int8 rate, for want of an int4 figure).
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -39,6 +56,7 @@ Usage: ``python3 chip_smoke.py [--seed N] [--profile]``
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import statistics
 import subprocess
@@ -50,11 +68,16 @@ import torch
 
 from iscc_search_tpu_torch.engine import DeviceNphdIndex
 from iscc_search_tpu_torch.engine.device_index import _cap_rows, _pow2ceil
-from iscc_search_tpu_torch.ops import _build
+from iscc_search_tpu_torch.experiments import exp_bitplane_int8 as ex10
+from iscc_search_tpu_torch.experiments import time_ms
+from iscc_search_tpu_torch.experiments import exp_bitplane_u8 as ex11
+from iscc_search_tpu_torch.experiments import exp_int4 as ex9
+from iscc_search_tpu_torch.experiments import exp_kernels as ex8
+from iscc_search_tpu_torch.ops import _build, bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
 from iscc_search_tpu_torch.ops.nphd import nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
-from iscc_search_tpu_torch.ops.pm1_scan import query_prefix
+from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix
 
 N_ROWS = 10_485_760  # bench.py headline size
 LANE_CHOICES = (2, 4, 6, 8)  # 64/128/192/256-bit
@@ -89,6 +112,35 @@ KERNELS = {
     },
 }
 PHASE1 = ("blockmax", "blockmax_mma_unpacked", "blockmax_mma_packed")
+EXPERIMENT_KERNELS = {  # TPU kernels 8-11, reached through iscc_search_tpu_torch.experiments
+    "blockmax_variant": {
+        "source": "iscc_search_tpu_torch/csrc/blockmax_variants.cu",
+        "replaces": "benchmarks/exp_kernels.py:42",
+        "also_replaces": [f"benchmarks/exp_kernels.py:{n}" for n in (59, 74, 91, 108, 129, 150, 169, 189)],
+    },
+    "int4_dot": {"source": "iscc_search_tpu_torch/csrc/int4_dot.cu", "replaces": "benchmarks/exp_int4.py:89"},
+    "int4_probe": {"source": "iscc_search_tpu_torch/csrc/int4_dot.cu", "replaces": "benchmarks/exp_int4.py:89"},
+    "blockmax_bitplane": {
+        "source": "iscc_search_tpu_torch/csrc/blockmax_bitplane.cu",
+        "replaces": "benchmarks/exp_bitplane_int8.py:53",
+    },
+    "blockmax_subword": {
+        "source": "iscc_search_tpu_torch/csrc/blockmax_bitplane.cu",
+        "replaces": "benchmarks/exp_bitplane_u8.py:123",
+    },
+}
+WRAPPERS = {
+    "blockmax_variant": ex8.blockmax_variant, "int4_dot": ex9.int4_dot, "int4_probe": ex9.int4_probe,
+    "blockmax_bitplane": ex10.blockmax_bitplane, "blockmax_subword": ex11.blockmax_subword,
+}
+# Script sizes of the experiments (benchmarks/exp_*.py defaults).
+N8, Q8 = 10_485_760, 256
+N9, N9_LARGE, Q9 = 1_048_576, 10_485_760, 8
+N10, Q10 = 8_388_608, 256
+HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
+INT8_OPS_S = 1979e12
+POPC_PER_CLOCK_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
+CARD = {}  # filled by phase_device: SMs and maximum SM clock
 
 
 def log(msg):
@@ -103,22 +155,31 @@ def random_codes(rng, n, lanes_choices=LANE_CHOICES, p=LANE_P):
     return codes, lanes
 
 
+def bound(nbytes, ops, ops_per_s):
+    """(bound_ms, bound_by): the larger of the bytes over the memory rate
+    and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def variant_bound(name, n, nq):
+    """bound() of one kernel-8 variant: the db rows it reads (chunk 0 only
+    for ``*_nodma``), its penalty row if its function uses one, the queries
+    and the (nq, n / 128) f32 output; the int8 dot's operations at the int8
+    rate, whatever unit the variant runs them on."""
+    epi, chunk, nodma, _ = ex8.variant_spec(name)
+    pen_bytes = {ex8.EPI_U8MAX: 1, ex8.EPI_BF16_NOPEN: 0, ex8.EPI_DOTONLY: 0, ex8.EPI_DOTONLY_BF16: 0,
+                 ex8.EPI_CONSUME: 0}.get(epi, 2)
+    nbytes = (min(n, chunk) if nodma else n) * 256 + n * pen_bytes + nq * 260 + nq * (n // 128) * 4
+    return bound(nbytes, 2 * nq * n * 256, INT8_OPS_S)
+
+
+def popc_per_s():
+    return POPC_PER_CLOCK_SM * CARD["sms"] * CARD["max_sm_mhz"] * 1e6
+
+
 def bodies_of(codes, lanes):
     return [codes[i, : lanes[i]].astype(">u4").tobytes() for i in range(len(lanes))]
-
-
-def cuda_ms(fn, reps):
-    """Mean milliseconds per call on the card (CUDA events, after one warm call)."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 # ------------------------------------------------------------------ phases
@@ -137,6 +198,12 @@ def phase_device():
     log(f"[device] {torch.cuda.get_device_name(0)} capability={cap} count={torch.cuda.device_count()} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     log(smi)  # name, power limit
+    CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    CARD["max_sm_mhz"] = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, check=True,
+    ).stdout.split()[0])
+    log(f"[device] {CARD['sms']} SMs, maximum SM clock {CARD['max_sm_mhz']:.0f} MHz")
     # f32 matmuls of the plain versions in full f32 (±1 dots are exact
     # either way; stated so the comparison does not depend on the default).
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -225,6 +292,7 @@ def phase_kernels(rng, dev, part_rows):
     # Main-path shapes: the capacities of the config-3 partitions, Q=512, kk=16.
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
+    work = {name: [0.0, 0.0] for name in KERNELS}  # bytes, ops (in each kernel's own unit)
     for lanes, n_part in sorted(part_rows.items()):
         nbits = lanes * 32
         cap = _cap_rows(n_part)
@@ -237,18 +305,35 @@ def phase_kernels(rng, dev, part_rows):
         calls["gather_rescore_plain"] = lambda: hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
         _compare_phase1(f"{nbits}-bit main", calls, err)
         _compare(f"gather_rescore {nbits}-bit main", calls["gather_rescore"](), calls["gather_rescore_plain"](), err)
-        t = {name: cuda_ms(calls[name], 20 if name == "gather_rescore" else 10) for name in KERNELS}
-        t.update({f"{name}_plain": cuda_ms(calls[f"{name}_plain"], 5 if name == "gather_rescore" else 3) for name in KERNELS})
+        t = {name: time_ms(calls[name], dev, 20 if name == "gather_rescore" else 10) for name in KERNELS}
+        t.update({f"{name}_plain": time_ms(calls[f"{name}_plain"], dev, 5 if name == "gather_rescore" else 3) for name in KERNELS})
         for name in KERNELS:
             ms[name] += t[name]
             plain_ms[name] += t[name + "_plain"]
+        # Bytes each input read once and each output written once; operations:
+        # popc of one word per (query, row, lane), or two per int8 MAC.
+        q_bytes = N_QUERIES * (lanes * 4 + 12)
+        out_bytes = N_QUERIES * (cap // 128) * 4
+        for name, db_bytes in (("blockmax", cap * lanes * 4), ("blockmax_mma_packed", cap * lanes * 4),
+                               ("blockmax_mma_unpacked", cap * nbits)):
+            work[name][0] += db_bytes + cap + q_bytes + out_bytes
+            work[name][1] += N_QUERIES * cap * (lanes if name == "blockmax" else 2 * nbits)
+        blocks = int(torch.unique(block_ids).numel())
+        work["gather_rescore"][0] += blocks * 128 * lanes * 4 + block_ids.numel() * 4 + q_bytes + block_ids.numel() * 512
+        work["gather_rescore"][1] += block_ids.numel() * 128 * lanes
         log(f"[kernels] {nbits}-bit cap={cap} Q={N_QUERIES} kk={KK}: kernel == plain; "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
         del q_packed, min_lanes, q_scale, db, valid, block_ids, twin, calls
+    stats = {}
     for name in KERNELS:
+        rate = INT8_OPS_S if "mma" in name else popc_per_s()
+        bound_ms, bound_by = bound(work[name][0], work[name][1], rate)
+        stats[name] = {"max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
+                       "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
         log(f"[kernels] {name}: {ms[name]:.4f} ms per Q={N_QUERIES} sweep of all partitions "
-            f"(plain {plain_ms[name]:.4f} ms), max |kernel - plain| = {err[name]}")
-    return {name: {"max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name]} for name in KERNELS}
+            f"(plain {plain_ms[name]:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: {work[name][0]:.4g} bytes, "
+            f"{work[name][1]:.4g} ops), max |kernel - plain| = {err[name]}")
+    return stats
 
 
 def phase_slice(rng, dev, codes, lanes):
@@ -392,7 +477,7 @@ def phase_twin(dev, idx, queries):
             raise AssertionError(f"{lanes * 32}-bit partition: the twin route differs from the route without a twin")
         if not torch.equal(bm, st["popc"]()):
             raise AssertionError(f"{lanes * 32}-bit partition: blockmax_mma_packed differs from blockmax")
-        t = {name: cuda_ms(fn, 5) for name, fn in st.items()}
+        t = {name: time_ms(fn, dev, 5) for name, fn in st.items()}
         log(f"[twin] {lanes * 32}-bit cap={parts[lanes].cap} Q={N_QUERIES} k={min(_pow2ceil(K), parts[lanes].cap)}: "
             "twin route == route without twin, blockmax_mma_packed == blockmax; "
             + ", ".join(f"{name} {v:.4f} ms" for name, v in t.items()))
@@ -400,6 +485,172 @@ def phase_twin(dev, idx, queries):
         f"{sum(p.count for p in parts.values())} filled): the int8-twin route equals the route without a twin")
     del twins, got, steps
     return launches
+
+
+def _experiment_data(dev, n, nq, seed):
+    """256-bit rows on the card from torch.randint words, 5% tombstones and
+    a dead block (block 3), and nq queries drawn from the rows, the odd ones
+    192-bit prefixes: (packed, valid, q_packed, min_lanes, q_scale, q_i8)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    packed = torch.randint(-(2**31), 2**31, (n, 8), dtype=torch.int32, device=dev, generator=gen)
+    valid = (torch.rand(n, device=dev, generator=gen) > 0.05).to(torch.uint8)
+    valid[3 * 128 : 4 * 128] = 0
+    q_lanes = torch.where(torch.arange(nq, device=dev) % 2 == 1, 6, 8).to(torch.int32)
+    min_lanes, q_scale = query_prefix(q_lanes, 256)
+    q_packed = packed[torch.randint(0, n, (nq,), device=dev, generator=gen)]
+    return packed, valid, q_packed, min_lanes, q_scale, masked_queries(q_packed, min_lanes, 256).to(torch.int8)
+
+
+def _variant_pen(name, orient, valid):
+    pen16 = torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16)
+    return valid[None, :] if name == "u8max" else (pen16[:, None] if orient == "col" else pen16[None, :])
+
+
+def _experiment_cases(dev, n, nq, seed, err, label, timed, which=(8, 9, 10)):
+    """The kernels ``which`` of 8-11 (10 stands for 10 and 11) against
+    their plain versions on one data set (kernels 10 and 11 also against
+    ``blockmax`` on the packed rows); ``timed``: also the plain versions'
+    times (the kernels' come from the entry points). Returns {kernel or
+    variant: plain ms}."""
+    packed, valid, q_packed, min_lanes, q_scale, q = _experiment_data(dev, n, nq, seed)
+    qs = q_scale[:, None].contiguous()
+    plain = {}
+    live = valid.bool().reshape(-1, 128).any(dim=1)
+    if 8 in which:
+        db = hs.build_unpacked_db(packed, 256)
+        first = {}  # launch key -> first name: names of one key share a plain time
+        for name in ex8.NAMES:
+            fn, orient = ex8.make_variant(name, n, nq)
+            args = (q, qs, db, _variant_pen(name, orient, valid))
+            _compare(f"blockmax_variant {name} {label}", fn(*args), ex8.blockmax_variant_plain(name, *args), err)
+            key = ex8.launch_key(name)
+            if timed and key in first:
+                plain[name] = plain[first[key]]
+            elif timed:
+                first[key] = name
+                plain[name] = time_ms(functools.partial(ex8.blockmax_variant_plain, name, *args), dev, 1)
+        del db
+    if 9 in which:
+        db_i8 = hs.build_unpacked_db(packed, 256)
+        q4, db4 = bitplane.build_int4_twin(q), bitplane.build_int4_twin(db_i8)
+        for nq4 in sorted({Q9, nq}):
+            q4n = q4[:nq4].contiguous()
+            full = ex9.int4_dot(q4n, db4)
+            _compare(f"int4_dot Q={nq4} {label}", full, ex9.int4_dot_plain(q4n, db4), err)
+            _compare(f"int4_probe Q={nq4} {label}", ex9.int4_probe(q4n, db4), ex9.int4_probe_plain(q4n, db4), err)
+        # The library yardstick: torch._int_mm on the int8 form (its A operand
+        # needs more than 16 rows: the queries are zero-padded to 32).
+        q_pad = torch.zeros((32, 256), dtype=torch.int8, device=dev)
+        q_pad[:Q9] = q[:Q9]
+        library = functools.partial(torch._int_mm, q_pad, db_i8.T)
+        _compare(f"int4_dot {label} vs torch._int_mm", ex9.int4_dot(q4[:Q9].contiguous(), db4), library()[:Q9], err)
+        if timed:
+            # ms-scale plain versions of few launches: enough calls to average
+            # out the host's launch latency
+            plain["int4_dot"] = time_ms(functools.partial(ex9.int4_dot_plain, q4[:Q9].contiguous(), db4), dev, 5)
+            plain["int4_probe"] = time_ms(functools.partial(ex9.int4_probe_plain, q4[:Q9].contiguous(), db4), dev, 20)
+            plain["library"] = time_ms(library, dev, 20)
+        del q4, db4, db_i8, q_pad, library
+    if 10 in which:
+        popc = hs.blockmax(q_packed, min_lanes, q_scale, packed, valid)
+        bt = bitplane.bit_transpose_packed(packed)
+        pen = bitplane.bitplane_penalty_perm(torch.where(valid.bool(), 0.0, -65536.0)).to(torch.bfloat16)[None, :]
+        got = ex10.blockmax_bitplane(q, q_scale, bt, pen)
+        _compare(f"blockmax_bitplane {label}", got, ex10.blockmax_bitplane_plain(q, q_scale, bt, pen), err)
+        _compare(f"blockmax_bitplane {label} vs blockmax (blocks with a valid row)", got[:, live], popc[:, live], err)
+        if timed:
+            plain["blockmax_bitplane"] = time_ms(functools.partial(ex10.blockmax_bitplane_plain, q, q_scale, bt, pen), dev, 1)
+        del bt
+        for wb in (8, 16):
+            twin = bitplane.build_twin(packed, wb)
+            pen = ex11.subword_penalty(valid, wb)
+            got = ex11.blockmax_subword(q, q_scale, twin, pen, wb)
+            _compare(f"blockmax_subword u{wb} {label}", got, ex11.blockmax_subword_plain(q, q_scale, twin, pen, wb), err)
+            _compare(f"blockmax_subword u{wb} {label} vs blockmax", got, popc, err)
+            if timed:
+                plain[f"u{wb}"] = time_ms(functools.partial(ex11.blockmax_subword_plain, q, q_scale, twin, pen, wb), dev, 1)
+            del twin
+    return plain
+
+
+def phase_experiments(dev):
+    """TPU kernels 8-11 through the experiment entry points (module
+    docstring, phase 6)."""
+    err = dict.fromkeys(EXPERIMENT_KERNELS, 0.0)
+    t0 = time.perf_counter()
+    _experiment_cases(dev, 32768, 77, seed=6, err=err, label="edge", timed=False)
+    log(f"[experiments] edge cases (N=32768, Q=77, 192-bit prefixes, tombstones, a dead block): kernel == plain "
+        f"for all {len(ex8.NAMES)} variants of kernel 8, int4_dot and int4_probe (Q=8 and 77), blockmax_bitplane "
+        f"and blockmax_subword u8/u16; kernel 10 == blockmax on blocks with a valid row, kernel 11 == blockmax "
+        f"everywhere ({time.perf_counter() - t0:.1f} s)")
+
+    # The entry points at the scripts' sizes, counters at 0 just before.
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+    res8 = ex8.main(["--n", str(N8), "--q", str(Q8), "--reps", "10", "base", *ex8.NAMES])
+    res9 = ex9.main(["--n", str(N9), "--q", str(Q9), "--reps", "20"])
+    res9_large = ex9.main(["--n", str(N9_LARGE), "--q", str(Q9), "--reps", "10"])
+    res10 = ex10.main(["--n", str(N10), "--q", str(Q10), "--reps", "10"])
+    res11 = ex11.main(["--n", str(N10), "--q", str(Q10), "--reps", "10"])
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in WRAPPERS.items()}
+    log(f"[experiments] kernel launches of the entry points: {launches}")
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"the experiment entry points never launched the {name} kernel")
+
+    # Kernel == plain at the scripts' sizes, and the plain versions' times.
+    plain8 = _experiment_cases(dev, N8, Q8, seed=8, err=err, label=f"N={N8}", timed=True, which=(8,))
+    plain9 = _experiment_cases(dev, N9, Q9, seed=9, err=err, label=f"N={N9}", timed=True, which=(9,))
+    plain9_large = _experiment_cases(dev, N9_LARGE, Q9, seed=9, err=err, label=f"N={N9_LARGE}", timed=True, which=(9,))
+    plain10 = _experiment_cases(dev, N10, Q10, seed=10, err=err, label=f"N={N10}", timed=True, which=(10,))
+    log(f"[experiments] kernel == plain at the scripts' sizes; plain ms: kernel 8 (N={N8}, Q={Q8}) "
+        + ", ".join(f"{k} {v:.4f}" for k, v in plain8.items() if k in ex8.NAMES)
+        + f"; int4 N={N9} Q={Q9}: dot {plain9['int4_dot']:.4f}, probe {plain9['int4_probe']:.4f}, "
+        f"torch._int_mm on the int8 form {plain9['library']:.4f}; N={N9_LARGE}: dot {plain9_large['int4_dot']:.4f}, "
+        f"probe {plain9_large['int4_probe']:.4f}, torch._int_mm {plain9_large['library']:.4f}; "
+        f"kernels 10/11 (N={N10}, Q={Q10}): bitplane {plain10['blockmax_bitplane']:.4f}, "
+        f"u8 {plain10['u8']:.4f}, u16 {plain10['u16']:.4f}")
+
+    # Bounds from the shapes: bytes (inputs once, outputs once) and operations.
+    macs10 = Q10 * N10 * 256
+    out10 = Q10 * (N10 // 128) * 4
+    bounds = {
+        "blockmax_variant": variant_bound("bf16", N8, Q8),
+        "int4_dot": bound(N9 * 128 + Q9 * 128 + Q9 * N9 * 4, 2 * Q9 * N9 * 256, INT8_OPS_S),
+        "int4_probe": bound(N9 * 128 + Q9 * 128 + Q9 * (N9 // 128) * 4, 2 * Q9 * N9 * 256, INT8_OPS_S),
+        "blockmax_bitplane": bound(N10 * 32 + N10 * 2 + Q10 * 260 + out10, 2 * macs10, INT8_OPS_S),
+        "blockmax_subword": bound(N10 * 32 + N10 * 4 + Q10 * 260 + out10, 2 * macs10, INT8_OPS_S),
+    }
+    ms = {"blockmax_variant": res8["bf16"], "int4_dot": res9["int4_dot"], "int4_probe": res9["int4_probe"],
+          "blockmax_bitplane": res10["int8_p8"], "blockmax_subword": res11["u8"]}
+    plain_ms = {"blockmax_variant": plain8["bf16"], "int4_dot": plain9["int4_dot"],
+                "int4_probe": plain9["int4_probe"], "blockmax_bitplane": plain10["blockmax_bitplane"],
+                "blockmax_subword": plain10["u8"]}
+    stats = {}
+    for name in EXPERIMENT_KERNELS:
+        stats[name] = {"max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
+                       "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+                       "library_ms": plain9["library"] if name == "int4_dot" else None}
+    variants = stats["blockmax_variant"]["variants"] = {}
+    for name in ex8.NAMES:
+        bound_ms, bound_by = variant_bound(name, N8, Q8)
+        variants[name] = {"ms": res8[name], "plain_ms": plain8[name], "bound_ms": bound_ms, "bound_by": bound_by}
+        log(f"[experiments] blockmax_variant {name}: {res8[name]:.4f} ms (plain {plain8[name]:.4f} ms, "
+            f"bound {bound_ms:.4f} ms by {bound_by})")
+    stats["blockmax_variant"]["base_ms"] = res8["base"]
+    for name in ("int4_dot", "int4_probe"):
+        stats[name][f"at_n{N9_LARGE}"] = {"ms": res9_large[name], "plain_ms": plain9_large[name]}
+    stats["int4_dot"][f"at_n{N9_LARGE}"]["library_ms"] = plain9_large["library"]
+    stats["blockmax_bitplane"]["modes"] = sorted(k for k in res10 if k != "blockmax")  # one launch, timed once
+    stats["blockmax_bitplane"]["blockmax_ms"] = res10["blockmax"]
+    stats["blockmax_subword"]["variants"] = {f"u{wb}": {"ms": res11[f"u{wb}"], "plain_ms": plain10[f"u{wb}"]}
+                                             for wb in (8, 16)}
+    stats["blockmax_subword"]["blockmax_ms"] = res11["blockmax"]
+    for name, st in stats.items():
+        log(f"[experiments] {name}: {st['ms']:.4f} ms (plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
+            f"by {st['bound_by']}), max |kernel - plain| = {st['max_abs_err']}")
+    return launches, stats
 
 
 def phase_profile(idx, queries, reps=5):
@@ -478,10 +729,14 @@ def main():
     launches.update(phase_twin(dev, idx, queries))
     if args.profile:
         phase_profile(idx, queries)
+    del idx
+    exp_launches, exp_stats = phase_experiments(dev)
+    launches.update(exp_launches)
+    stats.update(exp_stats)
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     summary = []
-    for name, meta in KERNELS.items():
+    for name, meta in {**KERNELS, **EXPERIMENT_KERNELS}.items():
         entry = {"name": name, "route": "cuda", "source": meta["source"], "replaces": meta["replaces"]}
         if "also_replaces" in meta:
             entry["also_replaces"] = meta["also_replaces"]

@@ -15,7 +15,11 @@ Layout (names follow the JAX package):
 - ``ops.nphd``: dense brute-force NPHD scores (the exactness oracle)
 - ``ops.hopper_scan``: the phase-1 block-max and phase-3 gather-rescore CUDA
   kernels, their plain PyTorch versions and the exact two-phase top-k
+- ``ops.bitplane``: the bit-plane, sub-word and int4 twin layouts of the
+  phase-1 experiments
 - ``engine.device_index``: ``DeviceNphdIndex``, the in-memory NPHD engine
+- ``experiments``: the phase-1 A/B entry points of ``benchmarks/exp_*.py``
+  over their own CUDA kernels
 """
 
 __version__ = "0.5.0"

@@ -25,8 +25,9 @@
 // fragment loads hit 32 distinct banks. Then a loop over query tiles of 64:
 // each warp takes 16 queries, builds their A fragments from the packed query
 // words (zero past min_lanes), and runs 16 n-tiles (8 rows each) x nbits/32
-// k-steps of m16n8k32. Penalty and running max stay in registers; the four
-// lanes that share a C row finish the max with __shfl_xor_sync.
+// k-steps of m16n8k32 (the tile of mma_s8.cuh). Penalty and running max stay
+// in registers; the four lanes that share a C row finish the max with
+// __shfl_xor_sync.
 //
 // What bounds it on an H100: tensor-core issue fed from shared memory. Each
 // m16n8k32 (4096 MACs) needs two 128-byte shared loads for its B fragment,
@@ -40,14 +41,16 @@
 #include <limits.h>
 #include <stdint.h>
 
+#include "mma_s8.cuh"
+
 namespace {
 
-constexpr int kBlockRows = 128;
-constexpr int kWarps = 4;
-constexpr int kWarpQueries = 16;  // m of m16n8k32
-constexpr int kQueryTile = kWarps * kWarpQueries;
-constexpr int kNTiles = kBlockRows / 8;  // n of m16n8k32
-constexpr int kRowPad = 16;  // bytes after each staged row
+using iscc_mma::kBlockRows;
+using iscc_mma::kNTiles;
+using iscc_mma::kQueryTile;
+using iscc_mma::kRowPad;
+using iscc_mma::kWarpQueries;
+using iscc_mma::kWarps;
 constexpr int kInvalidPenalty = 65536;
 
 // Four ±1 int8 values (0x01 / 0xFF) from the low 4 bits of `nib`: byte i is
@@ -140,23 +143,13 @@ blockmax_mma_kernel(const int32_t* __restrict__ q, int q_stride,
 #pragma unroll 4
     for (int n = 0; n < kNTiles; ++n) {
       // B fragment: column g is row 8n + g; k 4t..4t+3 and 16+4t...
-      const int8_t* brow = s_rows + (8 * n + g) * kStride + 4 * t;
-      int c0 = 0, c1 = 0, c2 = 0, c3 = 0;
-#pragma unroll
-      for (int l = 0; l < LANES; ++l) {
-        const uint32_t b0 = *reinterpret_cast<const uint32_t*>(brow + 32 * l);
-        const uint32_t b1 = *reinterpret_cast<const uint32_t*>(brow + 32 * l + 16);
-        asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-            "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-            : "+r"(c0), "+r"(c1), "+r"(c2), "+r"(c3)
-            : "r"(a[l][0]), "r"(a[l][1]), "r"(a[l][2]), "r"(a[l][3]),
-              "r"(b0), "r"(b1));
-      }
-      // C: c0/c1 are query qa, rows 8n + 2t + {0, 1}; c2/c3 query qb.
+      int c[4];
+      iscc_mma::dot_tile(a, s_rows + (8 * n + g) * kStride + 4 * t, c);
+      // C: c[0]/c[1] are query qa, rows 8n + 2t + {0, 1}; c[2]/c[3] query qb.
       const int p0 = (vmask >> (2 * n)) & 1u ? 0 : kInvalidPenalty;
       const int p1 = (vmask >> (2 * n + 1)) & 1u ? 0 : kInvalidPenalty;
-      best_a = max(best_a, max(c0 - p0, c1 - p1));
-      best_b = max(best_b, max(c2 - p0, c3 - p1));
+      best_a = max(best_a, max(c[0] - p0, c[1] - p1));
+      best_b = max(best_b, max(c[2] - p0, c[3] - p1));
     }
 #pragma unroll
     for (int off = 1; off < 4; off <<= 1) {

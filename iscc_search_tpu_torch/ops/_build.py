@@ -48,9 +48,9 @@ def sources():
 
 def build_key():
     # type: () -> str
-    """Hash of the flags and every source's name and bytes."""
+    """Hash of the flags and every source's and header's name and bytes."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in sources():
+    for path in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]

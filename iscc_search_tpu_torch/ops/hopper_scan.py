@@ -59,6 +59,15 @@ _SIGNATURES = {
     "iscc_blockmax_mma_packed": _PHASE1,
     # q, q_stride, min_lanes, block_ids, nq, kk, db, lanes, out, stream
     "iscc_gather_rescore": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _P),
+    # The phase-1 experiments (iscc_search_tpu_torch/experiments):
+    # epi, q, q_scale, nq, db, pen, nrows, db_wrap, out, stream
+    "iscc_blockmax_variant": (_I, _P, _P, _I, _P, _P, _I, _I, _P, _P),
+    # q, nq, db, nrows, out, stream / q, nq, db, nrows, chunk, out, stream
+    "iscc_int4_dot": (_P, _I, _P, _I, _P, _P),
+    "iscc_int4_probe": (_P, _I, _P, _I, _I, _P, _P),
+    # q, q_scale, nq, twin, pen, nrows, out, stream / ... width_bits, out, stream
+    "iscc_blockmax_bitplane": (_P, _P, _I, _P, _P, _I, _P, _P),
+    "iscc_blockmax_subword": (_P, _P, _I, _P, _P, _I, _I, _P, _P),
 }
 
 
@@ -68,6 +77,18 @@ def _entry(name):
     fn.argtypes = _SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch(wrapper, entry, device, *args):
+    # type: (...) -> None
+    """Launch C entry ``entry`` with ``args`` on ``device``'s current stream
+    (appended as the last argument), raise if the card refuses the launch,
+    else count it on ``wrapper.launches``."""
+    with torch.cuda.device(device):
+        err = _entry(entry)(*args, torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: cudaError {err}")
+    wrapper.launches += 1
 
 
 def _check(t, name, dtype, ndim):
@@ -130,14 +151,20 @@ def build_unpacked_db(db_packed, nbits):
     return out
 
 
+def fma_score(m, qs):
+    # type: (torch.Tensor, torch.Tensor) -> torch.Tensor
+    """``0.5 + m * qs`` rounded once to float32 (the float64 product and sum
+    are exact), as the kernels' ``__fmaf_rn`` and the JAX phase-1 kernels
+    round it; ``qs`` broadcasts against ``m``."""
+    return (0.5 + m.double() * qs.double()).float()
+
+
 def _blockmax_rows_plain(q_packed, min_lanes, q_scale, valid, nbits, rows_pm1):
     # type: (...) -> torch.Tensor
     """Plain phase 1 over ``rows_pm1(s, e)``, the (e - s, nbits) f32 ±1
     rows [s, e): f32 matmul (exact for integer dots of at most 256 terms),
     additive -65536 penalty on invalid rows, 128-row max, then
-    ``0.5 + m * q_scale`` rounded once to float32 (the float64 product and
-    sum are exact), as the kernels' ``__fmaf_rn`` and the JAX phase-1
-    kernels round it. Row chunks bound the memory."""
+    :func:`fma_score`. Row chunks bound the memory."""
     cap = valid.shape[0]
     q_pm1 = masked_queries(q_packed, min_lanes, nbits)
     pen = torch.where(valid.to(torch.bool), 0.0, -65536.0)
@@ -146,7 +173,7 @@ def _blockmax_rows_plain(q_packed, min_lanes, q_scale, valid, nbits, rows_pm1):
         e = min(cap, s + PLAIN_CHUNK_ROWS)
         dot = q_pm1 @ rows_pm1(s, e).T + pen[None, s:e]
         m = dot.reshape(dot.shape[0], (e - s) // BLOCK, BLOCK).amax(dim=2)
-        out[:, s // BLOCK : e // BLOCK] = (0.5 + m.double() * q_scale.double()[:, None]).float()
+        out[:, s // BLOCK : e // BLOCK] = fma_score(m, q_scale[:, None])
     return out
 
 
@@ -181,15 +208,10 @@ def _phase1(wrapper, entry, plain, q_packed, min_lanes, q_scale, db, valid, lane
         return plain(q_packed, min_lanes, q_scale, db, valid)
     nq = q_packed.shape[0]
     out = torch.empty((nq, cap // BLOCK), dtype=torch.float32, device=db.device)
-    with torch.cuda.device(db.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry(entry)(
-            q_packed.data_ptr(), q_packed.stride(0), min_lanes.data_ptr(), q_scale.data_ptr(), nq,
-            db.data_ptr(), valid.data_ptr(), cap // BLOCK, lanes, out.data_ptr(), stream,
-        )
-    if err:
-        raise RuntimeError(f"{wrapper.__name__} kernel launch failed: cudaError {err}")
-    wrapper.launches += 1
+    launch(
+        wrapper, entry, db.device, q_packed.data_ptr(), q_packed.stride(0), min_lanes.data_ptr(),
+        q_scale.data_ptr(), nq, db.data_ptr(), valid.data_ptr(), cap // BLOCK, lanes, out.data_ptr(),
+    )
     return out
 
 
@@ -285,15 +307,10 @@ def gather_rescore(q_packed, min_lanes, block_ids, db):
         return gather_rescore_plain(q_packed, min_lanes, block_ids, db)
     nq, kk = block_ids.shape
     out = torch.empty((nq, kk * BLOCK), dtype=torch.float32, device=db.device)
-    with torch.cuda.device(db.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = _entry("iscc_gather_rescore")(
-            q_packed.data_ptr(), q_packed.stride(0), min_lanes.data_ptr(), block_ids.data_ptr(),
-            nq, kk, db.data_ptr(), lanes, out.data_ptr(), stream,
-        )
-    if err:
-        raise RuntimeError(f"gather_rescore kernel launch failed: cudaError {err}")
-    gather_rescore.launches += 1
+    launch(
+        gather_rescore, "iscc_gather_rescore", db.device, q_packed.data_ptr(), q_packed.stride(0),
+        min_lanes.data_ptr(), block_ids.data_ptr(), nq, kk, db.data_ptr(), lanes, out.data_ptr(),
+    )
     return out
 
 

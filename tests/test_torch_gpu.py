@@ -18,9 +18,11 @@ import pytest
 import torch
 
 from iscc_search_tpu_torch.engine import DeviceNphdIndex
+from iscc_search_tpu_torch.experiments import exp_bitplane_int8, exp_bitplane_u8, exp_int4, exp_kernels
+from iscc_search_tpu_torch.ops import bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
 from iscc_search_tpu_torch.ops.nphd import nphd_scores
-from iscc_search_tpu_torch.ops.pm1_scan import query_prefix
+from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix
 
 pytestmark = pytest.mark.gpu
 
@@ -168,3 +170,83 @@ def test_index_search_on_card_matches_cpu_index(dev):
         rows = kg.view(">u8").ravel().astype(np.int64)
         np.testing.assert_allclose(ref[qi, rows], sg, rtol=0, atol=1e-6)
         np.testing.assert_allclose(np.sort(sg)[::-1], np.sort(ref[qi])[::-1][:10], rtol=0, atol=1e-6)
+
+
+def _experiment_case(dev, n, seed, nq=77):
+    """256-bit rows with tombstones and an all-invalid block (block 3), and
+    Q=77 queries, half of them 192-bit prefixes (q_scale = 1/384)."""
+    rng = np.random.default_rng(seed)
+    packed = torch.from_numpy(rng.integers(0, 2**32, (n, 8), dtype=np.uint32).view(np.int32)).to(dev)
+    valid_np = (rng.random(n) > 0.05).astype(np.uint8)
+    valid_np[3 * 128 : 4 * 128] = 0
+    valid = torch.from_numpy(valid_np).to(dev)
+    q_lanes = torch.from_numpy(np.where(np.arange(nq) % 2, 8, 6).astype(np.int32)).to(dev)
+    min_lanes, q_scale = query_prefix(q_lanes, 256)
+    q_packed = packed[torch.from_numpy(rng.integers(0, n, nq)).to(dev)]
+    return packed, valid, q_packed, min_lanes, q_scale
+
+
+@pytest.mark.parametrize("name", exp_kernels.NAMES)
+def test_variant_kernel_equals_plain(dev, name):
+    """Every kernel-8 variant of ``csrc/blockmax_variants.cu``: kernel ==
+    plain at two chunks, Q=77, short prefixes, tombstones, a dead block."""
+    n = 32768
+    packed, valid, q_packed, min_lanes, q_scale = _experiment_case(dev, n, seed=8)
+    db = hs.build_unpacked_db(packed, 256)
+    q = masked_queries(q_packed, min_lanes, 256).to(torch.int8)
+    fn, orient = exp_kernels.make_variant(name, n, q.shape[0])
+    pen = torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16)
+    pen = valid[None, :] if name == "u8max" else (pen[:, None] if orient == "col" else pen[None, :])
+    before = exp_kernels.blockmax_variant.launches
+    got = fn(q, q_scale[:, None].contiguous(), db, pen)
+    torch.cuda.synchronize()
+    assert exp_kernels.blockmax_variant.launches == before + 1
+    assert torch.equal(got, exp_kernels.blockmax_variant_plain(name, q, q_scale[:, None].contiguous(), db, pen))
+
+
+@pytest.mark.parametrize("nq", (8, 77))
+def test_int4_kernels_equal_plain(dev, nq):
+    """``csrc/int4_dot.cu``: the full dot and the probe against their plain
+    versions and the int8 rows' dot."""
+    n = 32768
+    gen = torch.Generator(device=dev).manual_seed(nq)
+    db_i8 = (torch.randint(0, 2, (n, 256), dtype=torch.int8, device=dev, generator=gen) * 2 - 1).to(torch.int8)
+    q_i8 = db_i8[:nq].clone()
+    q_i8[nq // 2 :, 192:] = 0
+    q4, db4 = bitplane.build_int4_twin(q_i8), bitplane.build_int4_twin(db_i8)
+    before = exp_int4.int4_dot.launches, exp_int4.int4_probe.launches
+    full = exp_int4.int4_dot(q4, db4)
+    probe = exp_int4.int4_probe(q4, db4)
+    torch.cuda.synchronize()
+    assert (exp_int4.int4_dot.launches, exp_int4.int4_probe.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(full, exp_int4.int4_dot_plain(q4, db4))
+    assert torch.equal(full, exp_int4.int8_reference_dot(q_i8, db_i8))
+    assert torch.equal(probe, exp_int4.int4_probe_plain(q4, db4))
+
+
+def test_bitplane_kernels_equal_plain_and_blockmax(dev):
+    """``csrc/blockmax_bitplane.cu``: both entries == plain; kernel 10's
+    bf16 epilogue == ``blockmax`` on blocks with a valid row, kernel 11's
+    int32 epilogue == ``blockmax`` everywhere."""
+    n = 8192
+    packed, valid, q_packed, min_lanes, q_scale = _experiment_case(dev, n, seed=10)
+    q = masked_queries(q_packed, min_lanes, 256).to(torch.int8)
+    popc = hs.blockmax(q_packed, min_lanes, q_scale, packed, valid)
+    live = valid.bool().reshape(-1, 128).any(dim=1)
+    twin = bitplane.bit_transpose_packed(packed)
+    pen = bitplane.bitplane_penalty_perm(torch.where(valid.bool(), 0.0, -65536.0)).to(torch.bfloat16)[None, :]
+    before = exp_bitplane_int8.blockmax_bitplane.launches
+    got = exp_bitplane_int8.blockmax_bitplane(q, q_scale, twin, pen)
+    torch.cuda.synchronize()
+    assert exp_bitplane_int8.blockmax_bitplane.launches == before + 1
+    assert torch.equal(got, exp_bitplane_int8.blockmax_bitplane_plain(q, q_scale, twin, pen))
+    assert torch.equal(got[:, live], popc[:, live]) and not bool(live.all())
+    for wb in (8, 16):
+        twin = bitplane.build_twin(packed, wb)
+        pen = exp_bitplane_u8.subword_penalty(valid, wb)
+        before = exp_bitplane_u8.blockmax_subword.launches
+        got = exp_bitplane_u8.blockmax_subword(q, q_scale, twin, pen, wb)
+        torch.cuda.synchronize()
+        assert exp_bitplane_u8.blockmax_subword.launches == before + 1
+        assert torch.equal(got, exp_bitplane_u8.blockmax_subword_plain(q, q_scale, twin, pen, wb))
+        assert torch.equal(got, popc)

@@ -377,15 +377,21 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 def test_build_key_follows_sources_and_nvcc_is_required(tmp_path, monkeypatch):
     names = [p.name for p in _build.sources()]
-    assert names == ["blockmax.cu", "blockmax_mma.cu", "gather_rescore.cu"]
+    assert names == [
+        "blockmax.cu", "blockmax_bitplane.cu", "blockmax_mma.cu", "blockmax_variants.cu", "gather_rescore.cu",
+        "int4_dot.cu",
+    ]
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
     csrc = tmp_path / "csrc"
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     assert _build.build_key() == key
+    (csrc / "mma_s8.cuh").write_text((csrc / "mma_s8.cuh").read_text() + "\n// changed\n")
+    header_key = _build.build_key()
+    assert header_key != key  # a header change rebuilds too
     (csrc / "blockmax.cu").write_text((csrc / "blockmax.cu").read_text() + "\n// changed\n")
-    assert _build.build_key() != key
+    assert _build.build_key() not in (key, header_key)
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
@@ -465,7 +471,7 @@ spec = importlib.util.spec_from_file_location("chip_smoke", "chip_smoke.py")
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "platformdirs", "iscc_search_tpu"))
 assert not leaked, leaked
-print(len(names), "modules")
+print(len(names), "modules", *names)
 """
 
 
@@ -481,7 +487,16 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=120,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 8
+    count, _, *names = proc.stdout.split()
+    assert int(count) >= 14
+    assert {
+        "iscc_search_tpu_torch.ops.bitplane",
+        "iscc_search_tpu_torch.experiments",
+        "iscc_search_tpu_torch.experiments.exp_kernels",
+        "iscc_search_tpu_torch.experiments.exp_int4",
+        "iscc_search_tpu_torch.experiments.exp_bitplane_int8",
+        "iscc_search_tpu_torch.experiments.exp_bitplane_u8",
+    } <= set(names)
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):
@@ -502,9 +517,27 @@ def test_chip_smoke_module_names_the_kernels():
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    for meta in mod.KERNELS.values():
+    assert set(mod.WRAPPERS) == set(mod.EXPERIMENT_KERNELS)
+    for meta in {**mod.KERNELS, **mod.EXPERIMENT_KERNELS}.values():
         assert (REPO / meta["source"]).is_file()
         for ref in [meta["replaces"], *meta.get("also_replaces", [])]:
             path, line = ref.split(":")
-            assert (REPO / path).read_text().splitlines()[int(line) - 1].startswith("def _")
+            assert (REPO / path).read_text().splitlines()[int(line) - 1].lstrip().startswith("def ")
     assert set(mod.PHASE1) <= set(mod.KERNELS)
+
+
+def test_chip_smoke_bounds_each_variant_by_its_own_work():
+    """Kernel-8 bounds: the ``*_nodma`` probes read chunk 0 only, so the
+    int8 operations bound them; ``bf16dot`` computes the integer dot of
+    ``bf16`` and shares its bound; a variant without a penalty reads less."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    n, nq = mod.N8, mod.Q8
+    ops_ms = 2 * nq * n * 256 / mod.INT8_OPS_S * 1e3
+    bf16 = mod.variant_bound("bf16", n, nq)
+    assert bf16[1] == "bytes" and bf16[0] > ops_ms
+    assert mod.variant_bound("bf16dot", n, nq) == bf16
+    assert mod.variant_bound("bf16_nopen", n, nq)[0] < bf16[0]
+    for name in ("dotonly_nodma", "dotonly_bf16_nodma", "consume_nodma", "nodma_full"):
+        assert mod.variant_bound(name, n, nq) == (pytest.approx(ops_ms), "operations")
