@@ -10,12 +10,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 1. device  — a CUDA device of compute capability >= 9.0 (there is no CPU
    path), and the card's name and power limit from ``nvidia-smi``;
 2. build   — the kernels of ``iscc_search_tpu_torch/csrc`` with nvcc;
-3. kernels — each kernel against its plain PyTorch version on the card,
-   ``torch.equal``, over all four widths, query tiles, short and long
-   queries, tombstones and fully invalid blocks (the two tensor-core
-   phase-1 entries also against the popc ``blockmax``), then at the shapes
-   of the config-3 partitions (Q=512, 16 candidate blocks per query) with
-   the time of each beside its plain version's (and beside ``blockmax``'s);
+3. kernels — one bare ``wgmma`` tile against the integer product (the
+   shared-memory layout of ``csrc/blockmax_mma.cu``), then each kernel
+   against its plain PyTorch version on the card, ``torch.equal``, over all
+   four widths, query tiles, short and long queries, tombstones and fully
+   invalid blocks (the two tensor-core phase-1 entries also against the
+   popc ``blockmax``), then at the shapes of the config-3 partitions
+   (Q=512, 16 candidate blocks per query) with the time of each beside its
+   plain version's (and beside ``blockmax``'s). ``gather_rescore`` runs
+   shorter than its Python wrapper, so its time is a CUDA-graph replay of
+   its calls (the device's clock); the host-paced reading is printed
+   beside it;
 4. slice   — ``DeviceNphdIndex(device="cuda")`` filled through
    ``add_packed``, 1/64 of the keys removed, 4,096 rows appended through
    ``add``, then ``search`` of 512 live rows at k=10: self-match at rank 0
@@ -75,6 +80,7 @@ from iscc_search_tpu_torch.experiments import exp_int4 as ex9
 from iscc_search_tpu_torch.experiments import exp_kernels as ex8
 from iscc_search_tpu_torch.ops import _build, bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
+from iscc_search_tpu_torch.ops import wgmma_layout
 from iscc_search_tpu_torch.ops.nphd import nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix
@@ -214,7 +220,8 @@ def phase_build():
     _build.library()
     log(f"[build] kernels built and loaded in {time.perf_counter() - t0:.2f} s ({_build.BUILD_ROOT})")
     for line in _build.build_log().splitlines():
-        if "Used" in line or "spill" in line:
+        # ptxas names each entry, then its registers and shared memory.
+        if "Compiling entry function" in line or "Used" in line or "spill" in line:
             log(f"[build] {line.strip()}")
 
 
@@ -273,6 +280,12 @@ def _compare_phase1(label, calls, err):
 
 def phase_kernels(rng, dev, part_rows):
     err = dict.fromkeys(KERNELS, 0.0)
+    # The layout, descriptors and accumulator order blockmax_mma.cu rests on.
+    a = torch.randint(-128, 128, (wgmma_layout.TILE_M, 256), dtype=torch.int8, device=dev)
+    b = torch.randint(-128, 128, (wgmma_layout.TILE_N, 256), dtype=torch.int8, device=dev)
+    if not torch.equal(wgmma_layout.wgmma_tile(a, b), wgmma_layout.wgmma_tile_plain(a, b)):
+        raise AssertionError("the bare wgmma tile differs from the integer product")
+    log("[kernels] bare wgmma m64n128k32 x 8 over the core-matrix layout == integer product")
     # Edge cases: every width, Q not a multiple of the 64-query tile, short
     # and long queries, tombstones, a fully invalid block, invalid padding.
     for nbits in (64, 128, 192, 256):
@@ -292,6 +305,7 @@ def phase_kernels(rng, dev, part_rows):
     # Main-path shapes: the capacities of the config-3 partitions, Q=512, kk=16.
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
+    gather_host_ms = 0.0  # gather_rescore paced by the host's launches
     work = {name: [0.0, 0.0] for name in KERNELS}  # bytes, ops (in each kernel's own unit)
     for lanes, n_part in sorted(part_rows.items()):
         nbits = lanes * 32
@@ -305,7 +319,9 @@ def phase_kernels(rng, dev, part_rows):
         calls["gather_rescore_plain"] = lambda: hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
         _compare_phase1(f"{nbits}-bit main", calls, err)
         _compare(f"gather_rescore {nbits}-bit main", calls["gather_rescore"](), calls["gather_rescore_plain"](), err)
-        t = {name: time_ms(calls[name], dev, 20 if name == "gather_rescore" else 10) for name in KERNELS}
+        t = {name: time_ms(calls[name], dev, 10) for name in PHASE1}
+        t["gather_rescore"] = time_ms(calls["gather_rescore"], dev, 20, graph=True)  # the device's clock
+        gather_host_ms += time_ms(calls["gather_rescore"], dev, 20)
         t.update({f"{name}_plain": time_ms(calls[f"{name}_plain"], dev, 5 if name == "gather_rescore" else 3) for name in KERNELS})
         for name in KERNELS:
             ms[name] += t[name]
@@ -324,6 +340,8 @@ def phase_kernels(rng, dev, part_rows):
         log(f"[kernels] {nbits}-bit cap={cap} Q={N_QUERIES} kk={KK}: kernel == plain; "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
         del q_packed, min_lanes, q_scale, db, valid, block_ids, twin, calls
+    log(f"[kernels] gather_rescore per sweep of all partitions: {ms['gather_rescore']:.4f} ms by the device's clock "
+        f"(CUDA-graph replay of 20 calls), {gather_host_ms:.4f} ms with each call launched by the host (events)")
     stats = {}
     for name in KERNELS:
         rate = INT8_OPS_S if "mma" in name else popc_per_s()
@@ -641,6 +659,8 @@ def phase_experiments(dev):
     stats["blockmax_variant"]["base_ms"] = res8["base"]
     for name in ("int4_dot", "int4_probe"):
         stats[name][f"at_n{N9_LARGE}"] = {"ms": res9_large[name], "plain_ms": plain9_large[name]}
+    log(f"[experiments] int4_dot, N={N9} / N={N9_LARGE}: {res9['int4_dot']:.4f} / {res9_large['int4_dot']:.4f} ms; "
+        f"torch._int_mm on the int8 form {plain9['library']:.4f} / {plain9_large['library']:.4f} ms")
     stats["int4_dot"][f"at_n{N9_LARGE}"]["library_ms"] = plain9_large["library"]
     stats["blockmax_bitplane"]["modes"] = sorted(k for k in res10 if k != "blockmax")  # one launch, timed once
     stats["blockmax_bitplane"]["blockmax_ms"] = res10["blockmax"]

@@ -7,12 +7,15 @@ of phase 1 on the card and checks them against a reference.
   orientation and tiling probes over the ±1 int8 twin
   (``csrc/blockmax_variants.cu``);
 - :mod:`.exp_int4` (``benchmarks/exp_int4.py``): the int4 twin, dotted on
-  the s4 tensor cores (``csrc/int4_dot.cu``);
+  the int8 tensor cores, nibbles shifted into bytes (``csrc/int4_dot.cu``);
 - :mod:`.exp_bitplane_int8` (``benchmarks/exp_bitplane_int8.py``): 0/1 bit
   planes of the bit-transposed twin on the int8 tensor cores
   (``csrc/blockmax_bitplane.cu``);
 - :mod:`.exp_bitplane_u8` (``benchmarks/exp_bitplane_u8.py``): the same
   from the uint8 / uint16 sub-word twins (``csrc/blockmax_bitplane.cu``).
+
+One more has no counterpart in ``benchmarks/``: :mod:`.exp_wgmma_ablate`
+times ``csrc/blockmax_mma.cu`` built with one part left out at a time.
 
 Each module parses its arguments only inside ``main(argv)``; importing it
 has no side effect. Run one on the card with, for example,
@@ -25,30 +28,50 @@ does.
 from __future__ import annotations
 
 import argparse
+import functools
 import time
 
 import torch
 
 
-def time_ms(fn, device, reps):
-    # type: (..., torch.device, int) -> float
+def time_ms(fn, device, reps, graph=False):
+    # type: (..., torch.device, int, bool) -> float
     """Mean milliseconds per call after one warm call: CUDA events on a
-    card, the host clock on the CPU."""
+    card, the host clock on the CPU.
+
+    :param graph: on a card, capture the ``reps`` calls in one
+        ``torch.cuda.CUDAGraph`` and time a replay of it, so that a kernel
+        shorter than its Python wrapper is timed by the device's clock and
+        not by the host's launch rate. ``fn`` must be capturable: no
+        synchronize, no host read of a device value. Ignored on the CPU.
+    """
     fn()
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         return (time.perf_counter() - t0) * 1e3 / reps
+    run = functools.partial(_repeat, fn, reps)
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.device(device), torch.cuda.graph(captured):
+            run()
+        run = captured.replay
+        run()  # the first replay also uploads the graph
     torch.cuda.synchronize(device)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
+    with torch.cuda.device(device):
+        start.record()
+        run()
+        end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _repeat(fn, reps):
+    for _ in range(reps):
+        fn()
 
 
 def parser(doc, n, q):

@@ -1,6 +1,7 @@
 """
 The int4 ±1 layout probe (port of ``benchmarks/exp_int4.py``; kernel
-``csrc/int4_dot.cu``, ``mma.sync.m16n8k64`` s4 x s4 -> s32).
+``csrc/int4_dot.cu``: ``mma.sync.m16n8k32`` s8 on nibbles shifted into
+int8, since the card's tensor cores have no 4-bit mode).
 
 Two questions, as in the script: does a dot of an int4 twin (half the bytes
 of the int8 twin) run on the card and match the int8 dot exactly, and at
@@ -102,16 +103,17 @@ def int4_probe_plain(q4, db4, chunk=CHUNK):
 def int4_probe(q4, db4, chunk=CHUNK):
     # type: (torch.Tensor, torch.Tensor, int) -> torch.Tensor
     """
-    The Pallas probe's output: (Q, N / 128) float32, column ``i * 128 + j``
-    = dot of row ``i * chunk + j``; the kernel dots every row
-    (``int4_probe.launches``). N % chunk == 0, chunk % 128 == 0.
+    The Pallas probe's output: (Q, N / chunk * 128) float32 (N / 128
+    columns at the script's chunk), column ``i * 128 + j`` = dot of row
+    ``i * chunk + j``; the kernel dots every row (``int4_probe.launches``).
+    N % chunk == 0, chunk % 128 == 0.
     """
     if chunk <= 0 or chunk % BLOCK:
         raise ValueError(f"chunk must be a positive multiple of {BLOCK}, got {chunk}")
     nq, n = _check_int4(q4, db4, chunk)
     if hs._route([q4, db4]) == "cpu":
         return int4_probe_plain(q4, db4, chunk)
-    out = torch.empty((nq, n // BLOCK), dtype=torch.float32, device=db4.device)
+    out = torch.empty((nq, n // chunk * BLOCK), dtype=torch.float32, device=db4.device)
     hs.launch(int4_probe, "iscc_int4_probe", db4.device, q4.data_ptr(), nq, db4.data_ptr(), n, chunk, out.data_ptr())
     return out
 

@@ -11,13 +11,21 @@ first use into ``build/torch_kernels/<key>/`` beside the package (a
 git-ignored directory), keyed by a hash of the sources and flags, so a
 changed source rebuilds and an unchanged one loads the existing library.
 The repository's sources are the only inputs.
+
+``python -m iscc_search_tpu_torch.ops._build [--sass NAME]`` builds the
+library and prints ptxas's resource lines; with ``--sass`` it also prints,
+for every kernel whose mangled name contains NAME, its machine instructions
+counted by opcode (``cuobjdump -sass``, which needs no profiler).
 """
 
 from __future__ import annotations
 
+import argparse
+import collections
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -46,10 +54,11 @@ def sources():
     return sorted(CSRC_DIR.glob("*.cu"))
 
 
-def build_key():
-    # type: () -> str
-    """Hash of the flags and every source's and header's name and bytes."""
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def build_key(defines=()):
+    # type: (tuple[str, ...]) -> str
+    """Hash of the flags, the ``-D`` defines and every source's and header's
+    name and bytes."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
     for path in sources() + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
@@ -71,25 +80,28 @@ def nvcc_path():
     )
 
 
-def build():
-    # type: () -> Path
+def build(defines=()):
+    # type: (tuple[str, ...]) -> Path
     """Compile the kernels unless a library with the current key exists.
 
     Concurrent builders (several processes at first use) each compile into
     a private temporary directory and publish the library with an atomic
     rename.
 
+    :param defines: ``NAME=value`` macros for a library apart from the
+        port's own (``library()`` builds with none), under a key of its own
     :return: path of the shared library
     """
-    out_dir = BUILD_ROOT / build_key()
+    out_dir = BUILD_ROOT / build_key(defines)
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file():
         return lib_path
     nvcc = nvcc_path()
+    flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=str(out_dir), prefix="tmp") as tmp:
         objects = {src: str(Path(tmp) / f"{src.stem}.o") for src in sources()}
-        compile_cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(src)] for src, obj in objects.items()]
+        compile_cmds = [[nvcc, *flags, "-c", "-o", obj, str(src)] for src, obj in objects.items()]
         link_cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(Path(tmp) / LIB_NAME), *objects.values()]
         log = []
         for batch in (compile_cmds, [link_cmd]):  # every source at once, then the link
@@ -119,3 +131,47 @@ def build_log():
     """The compiler output of the current build (ptxas resource usage)."""
     path = BUILD_ROOT / build_key() / "build.log"
     return path.read_text() if path.is_file() else ""
+
+
+_SASS_LINE = re.compile(r"^\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)")
+
+
+def sass_opcodes(name):
+    # type: (str) -> dict[str, collections.Counter]
+    """{mangled kernel name: Counter of SASS opcodes} for every kernel of
+    the built library whose name contains ``name`` (``cuobjdump`` beside
+    ``nvcc``)."""
+    dump = subprocess.run(
+        [str(Path(nvcc_path()).with_name("cuobjdump")), "-sass", str(build())],
+        capture_output=True, text=True, check=True,
+    ).stdout
+    found = {}
+    current = None
+    for line in dump.splitlines():
+        if "Function :" in line:
+            function = line.split("Function :")[1].strip()
+            current = found.setdefault(function, collections.Counter()) if name in function else None
+        elif current is not None:
+            m = _SASS_LINE.match(line)
+            if m:
+                current[m.group(1)] += 1
+    return found
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser(description="Build the Hopper kernels; print their resources and SASS opcodes.")
+    parser.add_argument("--sass", metavar="NAME", action="append", default=[], help="kernels whose name contains NAME")
+    args = parser.parse_args(argv)
+    build()
+    for line in build_log().splitlines():
+        if any(word in line for word in ("Used", "spill", "Compiling entry", "arning")):
+            print(line.strip())
+    for name in args.sass:
+        for function, counts in sass_opcodes(name).items():
+            print(f"{function}: {sum(counts.values())} instructions")
+            for opcode, count in counts.most_common():
+                print(f"  {count:5d} {opcode}")
+
+
+if __name__ == "__main__":
+    main()

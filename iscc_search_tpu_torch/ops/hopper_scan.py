@@ -5,9 +5,10 @@ hand-written Hopper kernels (port of the Pallas path of
 
 - :func:`blockmax` (phase 1, XOR + popc, ``csrc/blockmax.cu``) replaces the
   Pallas kernels ``_scan_kernel_bitplane`` and ``_scan_kernel_unpacked_perm``.
-- :func:`blockmax_mma_unpacked` (phase 1 on the int8 tensor cores from the
-  ±1 int8 twin of :func:`build_unpacked_db`, ``csrc/blockmax_mma.cu``)
-  replaces ``_scan_kernel_unpacked``.
+- :func:`blockmax_mma_unpacked` (phase 1 on the int8 tensor cores, ``wgmma``
+  from the ±1 int8 twin of :func:`build_unpacked_db`,
+  ``csrc/blockmax_mma.cu``; its shared-memory layout is mirrored in
+  ``ops/wgmma_layout.py``) replaces ``_scan_kernel_unpacked``.
 - :func:`blockmax_mma_packed` (the same kernel, rows unpacked from the
   packed partition inside it) replaces ``_scan_kernel_packed`` and
   ``_scan_kernel_packed_perm``.
@@ -68,6 +69,9 @@ _SIGNATURES = {
     # q, q_scale, nq, twin, pen, nrows, out, stream / ... width_bits, out, stream
     "iscc_blockmax_bitplane": (_P, _P, _I, _P, _P, _I, _P, _P),
     "iscc_blockmax_subword": (_P, _P, _I, _P, _P, _I, _I, _P, _P),
+    # The bare wgmma tile of ops/wgmma_layout.py:
+    # a_image, a_bytes, a_lbo, a_sbo, b_image, b_bytes, b_lbo, b_sbo, ksteps, out, stream
+    "iscc_wgmma_tile": (_P, _I, _I, _I, _P, _I, _I, _I, _I, _P, _P),
 }
 
 

@@ -21,6 +21,7 @@ from iscc_search_tpu_torch.engine import DeviceNphdIndex
 from iscc_search_tpu_torch.experiments import exp_bitplane_int8, exp_bitplane_u8, exp_int4, exp_kernels
 from iscc_search_tpu_torch.ops import bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
+from iscc_search_tpu_torch.ops import wgmma_layout as wl
 from iscc_search_tpu_torch.ops.nphd import nphd_scores
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix
 
@@ -91,6 +92,68 @@ def test_mma_kernels_equal_plain_and_blockmax(dev, nbits):
     assert torch.equal(got_p, hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid))
     assert torch.equal(got_u, popc) and torch.equal(got_p, popc)
     assert bool((got_u[:, 3] < -1.0).all())  # the all-invalid block
+
+
+@pytest.mark.parametrize(
+    "kbytes,a_layout,b_layout",
+    [
+        (32, None, None),  # one k-step, the kernel's layouts
+        (256, None, None),
+        (192, (512 * 16, 128), None),  # the query tile inside a 512-query panel
+        (256, (128, 16 * 128), (128, 16 * 128)),  # all k-chunks of an 8-row group together
+        (64, (64 * 16 + 48, 128), (128 * 16, 128)),  # another pad, and none
+    ],
+)
+def test_bare_wgmma_tile_equals_the_integer_product(dev, kbytes, a_layout, b_layout):
+    """One m64n128k32 chain over random int8 tiles written through the Python
+    mirror of the layout: proves the layout function, the descriptor fields
+    (which offset is LBO, which SBO) and the accumulator layout."""
+    rng = np.random.default_rng(kbytes)
+    a = torch.from_numpy(rng.integers(-128, 128, (64, kbytes), dtype=np.int8)).to(dev)
+    b = torch.from_numpy(rng.integers(-128, 128, (128, kbytes), dtype=np.int8)).to(dev)
+    before = wl.wgmma_tile.launches
+    got = wl.wgmma_tile(a, b, a_layout, b_layout)
+    torch.cuda.synchronize()
+    assert wl.wgmma_tile.launches == before + 1
+    assert torch.equal(got, wl.wgmma_tile_plain(a, b))
+    assert torch.equal(got.cpu(), a.cpu().int() @ b.cpu().int().T)
+
+
+@pytest.mark.parametrize("lanes", range(1, 9))
+@pytest.mark.parametrize("nq", (1, 63, 64, 65, 77, 512, 600))
+def test_wgmma_kernels_at_every_width_and_query_count(dev, lanes, nq):
+    """``blockmax_mma_*`` == plain == ``blockmax`` for every lane count, for
+    query counts around the 64-query tile and the 512-query chunk, on a
+    partition with fewer blocks than the card has SMs (40) and one with more
+    (300: a persistent thread block walks several)."""
+    nbits = lanes * 32
+    for cap in (128 * 40, 128 * 300):
+        q_packed, min_lanes, q_scale, db, valid, _ = _case(dev, nbits, seed=1000 * lanes + nq, cap=cap, nq=nq)
+        if lanes % 2:  # _random_codes draws even lane counts only: some queries shorter than an odd partition
+            min_lanes = torch.minimum(min_lanes, torch.arange(nq, device=dev, dtype=torch.int32) % lanes + 1)
+            q_scale = (1.0 / (64.0 * min_lanes)).to(torch.float32)
+        twin = hs.build_unpacked_db(db, nbits)
+        want = hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid)
+        assert torch.equal(hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid), want)
+        assert torch.equal(hs.blockmax_mma_unpacked(q_packed, min_lanes, q_scale, twin, valid), want)
+        assert torch.equal(hs.blockmax(q_packed, min_lanes, q_scale, db, valid), want)
+        assert bool((want[:, 3] < -1.0).all())  # the all-invalid block
+
+
+@pytest.mark.parametrize("blocks", (1, 2, 3, 131, 133))
+def test_wgmma_kernels_on_few_blocks_and_just_around_the_sm_count(dev, blocks):
+    """One block (both teams of the one thread block take it), odd shares,
+    and block counts next to the card's SM count."""
+    for nbits in (64, 256):
+        q_packed, min_lanes, q_scale, db, valid, _ = _case(dev, nbits, seed=blocks, cap=128 * blocks, nq=130)
+        valid[: 128 * blocks] = 1
+        valid[::5] = 0
+        if blocks > 1:
+            valid[128:256] = 0  # an all-invalid block
+        twin = hs.build_unpacked_db(db, nbits)
+        want = hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid)
+        assert torch.equal(hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid), want)
+        assert torch.equal(hs.blockmax_mma_unpacked(q_packed, min_lanes, q_scale, twin, valid), want)
 
 
 @pytest.mark.parametrize("nbits,k", [(64, 10), (192, 7), (256, 16)])
@@ -202,6 +265,41 @@ def test_variant_kernel_equals_plain(dev, name):
     torch.cuda.synchronize()
     assert exp_kernels.blockmax_variant.launches == before + 1
     assert torch.equal(got, exp_kernels.blockmax_variant_plain(name, q, q_scale[:, None].contiguous(), db, pen))
+
+
+@pytest.mark.parametrize("nq", (1, 8, 16, 17))
+def test_int4_kernels_equal_plain_on_any_int4_values(dev, nq):
+    """The dot and the probe of ``csrc/int4_dot.cu`` on random int4
+    values, -8 included (twins of ±1 rows hold only 1 and 15), at query
+    counts around the 16-query tile, and a probe chunk of 256 rows."""
+    rng = np.random.default_rng(nq)
+    n = 16384
+    db4 = torch.from_numpy(rng.integers(0, 256, (n, 128), dtype=np.uint8)).to(dev)
+    q4 = torch.from_numpy(rng.integers(0, 256, (nq, 128), dtype=np.uint8)).to(dev)
+    db4[0], q4[0] = 0x88, 0x88  # -8 x -8, 256 times
+    want = exp_int4.int4_dot_plain(q4, db4)
+    assert int(want[0, 0]) == 256 * 64
+    before = exp_int4.int4_dot.launches
+    got = exp_int4.int4_dot(q4, db4)
+    torch.cuda.synchronize()
+    assert exp_int4.int4_dot.launches == before + 1
+    assert torch.equal(got, want)
+    for chunk in (exp_int4.CHUNK, 256):
+        assert torch.equal(exp_int4.int4_probe(q4, db4, chunk), exp_int4.int4_probe_plain(q4, db4, chunk))
+
+
+def test_time_ms_times_a_graph_replay_by_the_device_clock(dev):
+    """``time_ms(graph=True)`` captures the calls once and replays them: the
+    wrapper runs reps + 1 times in all (warm call, capture), the kernel
+    reps more, and the reading is no larger than a host-paced one by much."""
+    from iscc_search_tpu_torch.experiments import time_ms
+
+    q_packed, min_lanes, _, db, _, block_ids = _case(dev, 256, seed=5)
+    before = hs.gather_rescore.launches
+    graph_ms = time_ms(lambda: hs.gather_rescore(q_packed, min_lanes, block_ids, db), dev, 10, graph=True)
+    assert hs.gather_rescore.launches == before + 11
+    host_ms = time_ms(lambda: hs.gather_rescore(q_packed, min_lanes, block_ids, db), dev, 10)
+    assert 0.0 < graph_ms < 10 * host_ms
 
 
 @pytest.mark.parametrize("nq", (8, 77))
