@@ -3,7 +3,9 @@
 Smoke run of the PyTorch + CUDA port (``iscc_search_tpu_torch``) on one
 Hopper GPU, at the size of BASELINE config 3: 10,485,760 variable-length
 ISCC-UNIT codes (64/128/192/256-bit at p = .25/.25/.10/.40, the mix of
-``benchmarks/config3_10m.py``), exact NPHD top-10 for a batch of 512 queries.
+``benchmarks/config3_10m.py``), exact NPHD top-10 for a batch of 512 queries;
+and at the size of BASELINE config 2: 1,048,576 256-bit codes with a
+persisted snapshot.
 
 Phases (each prints its lines; any failure raises and exits non-zero):
 
@@ -21,12 +23,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    shorter than its Python wrapper, so its time is a CUDA-graph replay of
    its calls (the device's clock); the host-paced reading is printed
    beside it;
-4. slice   — ``DeviceNphdIndex(device="cuda")`` filled through
-   ``add_packed``, 1/64 of the keys removed, 4,096 rows appended through
-   ``add``, then ``search`` of 512 live rows at k=10: self-match at rank 0
-   with score 1.0, the top-10 of 16 sampled queries against brute-force
-   ``nphd_scores`` over the whole database, no removed key returned, and
-   both kernels launched by the search;
+4. slice   — ``DeviceNphdIndex(path, device="cuda")`` (``scan_kernel``
+   left at ``"auto"``) filled through ``add_packed``, 1/64 of the keys
+   removed, 4,096 rows appended through ``add``, then ``search`` of 512
+   live rows at k=10: self-match at rank 0 with score 1.0, the top-10 of 16
+   sampled queries against brute-force ``nphd_scores`` over the whole
+   database, no removed key returned, and the search launched
+   ``blockmax_mma_packed`` and ``gather_rescore`` and no ``blockmax``;
 5. twin    — the int8-twin route over the engine's own four partitions:
    ``build_unpacked_db`` on the card (seconds and bytes printed), then
    ``blockmax_topk_packedq_impl(..., db_unpacked=twin, unpacked=True)``
@@ -34,7 +37,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    tensor-core phase 1 (``blockmax_mma_packed``) on each partition, both
    kernels launched; results ``torch.equal`` to the route without a twin
    and to ``blockmax``, with the time of each route;
-6. experiments — the phase-1 experiment entry points of
+6. route   — phase 1 by batch size, on the engine's four partitions:
+   ``blockmax`` (XOR + popc) and ``blockmax_mma_packed`` (``wgmma``) at Q in
+   1..1024, CUDA-graph replays, ``torch.equal`` at every point; the table
+   Q x width x {popc ms, mma ms}, the crossover per width, and what
+   ``scan_kernel="auto"`` takes (it fails if that is more than 1.5x the
+   other kernel's time anywhere). Then warm searches at Q=512 and Q=1
+   under ``"popc"``, ``"mma"`` and ``"auto"``, four rounds of 7 in
+   alternating order, each checked against brute force, equal to the
+   ``"popc"`` results and launching the phase-1 kernels its
+   ``scan_kernel`` names; the JSON summary's ``launches`` of
+   ``blockmax`` and ``blockmax_mma_packed`` are those of the ``"auto"``
+   searches;
+7. persist — BASELINE config 2 at its own size: 1,048,576 random 256-bit
+   codes, keys 1..N, 1/64 tombstoned, in a fresh temporary directory with
+   8 MiB shards (five sealed segments). Search (a), ``save(wait=True)``,
+   ``close()``, open the directory anew, search (b); add 4,096 rows,
+   remove some, ``save(wait=False)``, ``drain_rotations()``, reopen,
+   search (c); ``compact()``, save, reopen, search (d). (a) == (b) exactly,
+   (a), (c) and (d) equal brute force; save, load, first-search and
+   warm-search seconds and the directory's bytes are printed. Then the
+   config-3 index of phases 4-6 is saved, closed and opened anew, and must
+   answer as before;
+8. experiments — the phase-1 experiment entry points of
    ``iscc_search_tpu_torch.experiments`` (TPU kernels 8-11): each kernel
    against its plain version (``torch.equal``) on edge cases (Q=77,
    192-bit prefixes, tombstones, a dead block; kernels 10 and 11 also
@@ -46,14 +71,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 Each kernel's line in the JSON summary carries ``bound_ms``, the least time
 the card could take for the same work: the larger of its bytes (each input
 read once, each output written once) over 3.35 TB/s and its operations over
-the peak rate of their type (int8 1,979 TOP/s, for the integer dots of
-every kernel-8 variant too, whatever unit it runs them on; ``popc``
-at 16 per clock per SM at the card's maximum SM clock, the CUDA C++
-Programming Guide's throughput for compute capability 9.0; int4 MACs at the
-int8 rate, for want of an int4 figure).
+the peak rate of their type (int8 1,979 TOP/s for the ±1 dots of every
+phase-1 kernel, ``blockmax`` and the kernel-8 variants too, whatever unit
+runs them; int4 MACs at the int8 rate, for want of an int4 figure; the
+``popc`` of ``gather_rescore`` at 16 per clock per SM at the card's maximum
+SM clock, NVIDIA's published throughput for compute capability 9.0).
+``blockmax`` also carries ``popc_ceiling_ms``, its popc count over that
+rate: the ceiling of XOR + popc as an implementation, not a bound of the
+function.
 
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.
+
+``--profile`` adds, after phase 6, the host split and the device time by
+kernel of warm searches under ``"popc"`` and ``"auto"`` at Q=512 and under
+``"auto"`` at Q=1.
 
 Usage: ``python3 chip_smoke.py [--seed N] [--profile]``
 """
@@ -65,6 +97,7 @@ import functools
 import json
 import statistics
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -72,7 +105,7 @@ import numpy as np
 import torch
 
 from iscc_search_tpu_torch.engine import DeviceNphdIndex
-from iscc_search_tpu_torch.engine.device_index import _cap_rows, _pow2ceil
+from iscc_search_tpu_torch.engine.device_index import _cap_rows, _pow2ceil, auto_phase1
 from iscc_search_tpu_torch.experiments import exp_bitplane_int8 as ex10
 from iscc_search_tpu_torch.experiments import time_ms
 from iscc_search_tpu_torch.experiments import exp_bitplane_u8 as ex11
@@ -93,6 +126,11 @@ K = 10
 KK = 16  # candidate blocks per query at k=10 (k bucketed to a power of two)
 N_APPEND = 4096
 TOMBSTONE_EVERY = 64
+ROUTE_QS = (1, 2, 4, 8, 16, 32, 40, 48, 64, 96, 128, 192, 256, 512, 1024)  # batch sizes of the [route] table
+ROUTE_ROUNDS = 4  # rounds of 7 warm searches per scan_kernel and batch size
+AUTO_SLACK = 1.5  # 'auto' may take the slower phase-1 kernel by at most this factor (near a crossover)
+N_PERSIST = 1_048_576  # BASELINE config 2: 1M x 256-bit units with a persisted snapshot
+PERSIST_SHARD_BYTES = 8 * 1024 * 1024  # seals ~186,000 rows per segment: five sealed segments at config 2
 N_ORACLE = 16
 SCORE_ATOL = 1e-6  # 0.5 + dot*q_scale vs 1 - ham/min_bits: a few f32 ulps near 1.0
 
@@ -306,7 +344,8 @@ def phase_kernels(rng, dev, part_rows):
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
     gather_host_ms = 0.0  # gather_rescore paced by the host's launches
-    work = {name: [0.0, 0.0] for name in KERNELS}  # bytes, ops (in each kernel's own unit)
+    work = {name: [0.0, 0.0] for name in KERNELS}  # bytes, operations
+    popc_ops = 0.0  # what blockmax.cu executes: one popc per (query, row, lane)
     for lanes, n_part in sorted(part_rows.items()):
         nbits = lanes * 32
         cap = _cap_rows(n_part)
@@ -326,14 +365,16 @@ def phase_kernels(rng, dev, part_rows):
         for name in KERNELS:
             ms[name] += t[name]
             plain_ms[name] += t[name + "_plain"]
-        # Bytes each input read once and each output written once; operations:
-        # popc of one word per (query, row, lane), or two per int8 MAC.
+        # Bytes each input read once and each output written once; operations
+        # of the function: two per ±1 product of a (query, row) dot, at the
+        # int8 rate for every phase-1 kernel, whatever unit it runs them on.
         q_bytes = N_QUERIES * (lanes * 4 + 12)
         out_bytes = N_QUERIES * (cap // 128) * 4
         for name, db_bytes in (("blockmax", cap * lanes * 4), ("blockmax_mma_packed", cap * lanes * 4),
                                ("blockmax_mma_unpacked", cap * nbits)):
             work[name][0] += db_bytes + cap + q_bytes + out_bytes
-            work[name][1] += N_QUERIES * cap * (lanes if name == "blockmax" else 2 * nbits)
+            work[name][1] += N_QUERIES * cap * 2 * nbits
+        popc_ops += N_QUERIES * cap * lanes
         blocks = int(torch.unique(block_ids).numel())
         work["gather_rescore"][0] += blocks * 128 * lanes * 4 + block_ids.numel() * 4 + q_bytes + block_ids.numel() * 512
         work["gather_rescore"][1] += block_ids.numel() * 128 * lanes
@@ -344,20 +385,77 @@ def phase_kernels(rng, dev, part_rows):
         f"(CUDA-graph replay of 20 calls), {gather_host_ms:.4f} ms with each call launched by the host (events)")
     stats = {}
     for name in KERNELS:
-        rate = INT8_OPS_S if "mma" in name else popc_per_s()
+        rate = popc_per_s() if name == "gather_rescore" else INT8_OPS_S
         bound_ms, bound_by = bound(work[name][0], work[name][1], rate)
         stats[name] = {"max_abs_err": err[name], "ms": ms[name], "plain_ms": plain_ms[name],
                        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+        if name == "blockmax":
+            # Not the function's bound: the ceiling of XOR + popc as an implementation.
+            stats[name]["popc_ceiling_ms"] = popc_ops / popc_per_s() * 1e3
+            log(f"[kernels] blockmax: the ceiling of its popc count is {stats[name]['popc_ceiling_ms']:.4f} ms ({popc_ops:.4g} popc)")
         log(f"[kernels] {name}: {ms[name]:.4f} ms per Q={N_QUERIES} sweep of all partitions "
             f"(plain {plain_ms[name]:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: {work[name][0]:.4g} bytes, "
             f"{work[name][1]:.4g} ops), max |kernel - plain| = {err[name]}")
     return stats
 
 
-def phase_slice(rng, dev, codes, lanes):
+def brute_force(dev, q_codes, q_lanes, all_codes, all_lanes, valid):
+    """(len(q_lanes), len(all_lanes)) f32 NPHD scores of every row on the
+    card, invalid rows masked, in steps of 2**20 rows."""
+    db_codes = torch.from_numpy(all_codes.view(np.int32)).to(dev)
+    db_lanes = torch.from_numpy(all_lanes).to(dev)
+    db_valid = torch.from_numpy(valid).to(dev)
+    oq = torch.from_numpy(q_codes.view(np.int32)).to(dev)
+    ol = torch.from_numpy(q_lanes).to(dev)
+    step = 1 << 20
+    return torch.cat([
+        nphd_scores(oq, ol, db_codes[s : s + step], db_lanes[s : s + step], db_valid[s : s + step])
+        for s in range(0, len(all_lanes), step)
+    ], dim=1)
+
+
+def check_results(label, res, q_keys, valid, ref_np, top_ref, sample, first_key=0):
+    """Raise unless every query has ``K`` results with its own key (a live
+    stored row) at score 1.0 in front, no result is an invalid row, and for
+    the sampled queries the score multiset equals brute force's top-``K``
+    and every returned row carries its brute-force score. Row r holds key
+    ``first_key + r``; ``q_keys`` are the queries' own keys."""
+    for qi, (k, s) in enumerate(res):
+        got = k.view(">u8").ravel().astype(np.int64)
+        if len(got) != K or int(got[0]) != int(q_keys[qi]) or float(s[0]) != 1.0:
+            raise AssertionError(f"{label} query {qi}: rank 0 is key {got[:1]} score {s[:1]}, expected key {q_keys[qi]} at 1.0")
+        if not valid[got - first_key].all():
+            raise AssertionError(f"{label} query {qi} returned a removed key")
+    for j, qi in enumerate(sample):
+        k, s = res[qi]
+        rows = k.view(">u8").ravel().astype(np.int64) - first_key
+        if not np.allclose(np.sort(s)[::-1], top_ref[j], rtol=0, atol=SCORE_ATOL):
+            raise AssertionError(f"{label} query {qi}: top-{K} scores {s} != brute force {top_ref[j]}")
+        if not np.allclose(ref_np[j, rows], s, rtol=0, atol=SCORE_ATOL):
+            raise AssertionError(f"{label} query {qi}: returned rows carry brute-force scores {ref_np[j, rows]}, not {s}")
+
+
+def same_results(a, b):
+    """Two result lists equal exactly: the same keys and scores in the same order."""
+    return len(a) == len(b) and all(
+        np.array_equal(ka, kb) and np.array_equal(sa, sb) for (ka, sa), (kb, sb) in zip(a, b)
+    )
+
+
+def warm_searches(idx, queries, reps=7):
+    """(last results, sorted seconds) of ``reps`` warm searches by the host's clock."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = idx.search(queries, K)
+        times.append(time.perf_counter() - t0)
+    return res, sorted(times)
+
+
+def phase_slice(rng, dev, codes, lanes, path):
     n = len(lanes)
     keys = np.arange(n, dtype=">u8").view(np.uint8).reshape(n, 8)
-    idx = DeviceNphdIndex(device="cuda")
+    idx = DeviceNphdIndex(path, device="cuda")
     t0 = time.perf_counter()
     idx.add_packed(keys, codes, lanes)
     log(f"[slice] add_packed {n} codes: {time.perf_counter() - t0:.3f} s")
@@ -383,17 +481,17 @@ def phase_slice(rng, dev, codes, lanes):
     q_rows[-8:] = n + np.arange(8) * (N_APPEND // 8)  # some queries are appended rows
     queries = bodies_of(all_codes[q_rows], all_lanes[q_rows])
 
-    for fn in (hs.blockmax, hs.gather_rescore):
+    for fn in hs.PHASE1.values():
         fn.launches = 0
+    hs.gather_rescore.launches = 0
     t0 = time.perf_counter()
     res = idx.search(queries, K)  # incremental sync: appends + fresh validity
     sync_s = time.perf_counter() - t0
-    times = []
-    for _ in range(7):
-        t0 = time.perf_counter()
-        res = idx.search(queries, K)
-        times.append(time.perf_counter() - t0)
-    launches = {"blockmax": hs.blockmax.launches, "gather_rescore": hs.gather_rescore.launches}
+    res, times = warm_searches(idx, queries)
+    # scan_kernel="auto" at Q=512: phase 1 on the tensor cores, no popc launch.
+    launches = {"blockmax_mma_packed": hs.blockmax_mma_packed.launches, "gather_rescore": hs.gather_rescore.launches}
+    if hs.blockmax.launches:
+        raise AssertionError(f"scan_kernel='auto' launched blockmax {hs.blockmax.launches} times at Q={N_QUERIES}")
     med = statistics.median(times)
     log(f"[slice] search after remove+add (incremental sync + search): {sync_s:.4f} s")
     log(f"[slice] warm search Q={N_QUERIES} k={K}: median {med * 1e3:.3f} ms of {len(times)} "
@@ -405,42 +503,17 @@ def phase_slice(rng, dev, codes, lanes):
         if count <= 0:
             raise AssertionError(f"the search never launched the {name} kernel")
 
-    # Self-match, and no removed key anywhere.
-    removed_set = set(removed.tolist())
-    for qi, (k, s) in enumerate(res):
-        got = k.view(">u8").ravel()
-        if len(got) != K or int(got[0]) != int(q_rows[qi]) or float(s[0]) != 1.0:
-            raise AssertionError(f"query {qi}: rank 0 is key {got[:1]} score {s[:1]}, expected key {q_rows[qi]} at 1.0")
-        if removed_set.intersection(got.tolist()):
-            raise AssertionError(f"query {qi} returned a removed key")
-    log(f"[slice] self-match at rank 0 with score 1.0 for all {N_QUERIES} queries; no removed key returned")
-
     # Brute force over the whole database on the card (key == row here).
     valid = np.ones(len(all_lanes), bool)
     valid[removed] = False
-    db_codes = torch.from_numpy(all_codes.view(np.int32)).to(dev)
-    db_lanes = torch.from_numpy(all_lanes).to(dev)
-    db_valid = torch.from_numpy(valid).to(dev)
     sample = np.linspace(0, N_QUERIES - 1, N_ORACLE).astype(np.int64)
-    oq = torch.from_numpy(all_codes[q_rows[sample]].view(np.int32)).to(dev)
-    ol = torch.from_numpy(all_lanes[q_rows[sample]]).to(dev)
-    step = 1 << 20
-    ref = torch.cat([
-        nphd_scores(oq, ol, db_codes[s : s + step], db_lanes[s : s + step], db_valid[s : s + step])
-        for s in range(0, len(all_lanes), step)
-    ], dim=1)
-    top_ref = torch.topk(ref, K, dim=1).values.cpu().numpy()
-    ref_np = ref.cpu().numpy()
-    for j, qi in enumerate(sample):
-        k, s = res[qi]
-        rows = k.view(">u8").ravel().astype(np.int64)
-        if not np.allclose(np.sort(s)[::-1], top_ref[j], rtol=0, atol=SCORE_ATOL):
-            raise AssertionError(f"query {qi}: top-{K} scores {s} != brute force {top_ref[j]}")
-        if not np.allclose(ref_np[j, rows], s, rtol=0, atol=SCORE_ATOL):
-            raise AssertionError(f"query {qi}: returned rows carry brute-force scores {ref_np[j, rows]}, not {s}")
-    log(f"[slice] {N_ORACLE} sampled queries: top-{K} score multisets and every row's score match brute-force "
+    ref = brute_force(dev, all_codes[q_rows[sample]], all_lanes[q_rows[sample]], all_codes, all_lanes, valid)
+    oracle = (q_rows, valid, ref.cpu().numpy(), torch.topk(ref, K, dim=1).values.cpu().numpy(), sample)
+    check_results("[slice]", res, *oracle)
+    log(f"[slice] self-match at rank 0 with score 1.0 for all {N_QUERIES} queries; no removed key returned; "
+        f"{N_ORACLE} sampled queries: top-{K} score multisets and every row's score match brute-force "
         f"nphd_scores over all {len(all_lanes)} rows (atol {SCORE_ATOL})")
-    return launches, idx, queries
+    return launches, idx, queries, oracle
 
 
 def phase_twin(dev, idx, queries):
@@ -503,6 +576,222 @@ def phase_twin(dev, idx, queries):
         f"{sum(p.count for p in parts.values())} filled): the int8-twin route equals the route without a twin")
     del twins, got, steps
     return launches
+
+
+def phase_route(dev, idx, queries, oracle):
+    """Phase 1 by batch size on the engine's own partitions: both kernels at
+    every Q of ``ROUTE_QS`` (CUDA-graph replays, ``torch.equal`` at every
+    point), the crossover per lane count beside what ``auto_phase1`` picks,
+    then warm searches at Q=1 and Q=512 under each ``scan_kernel`` with the
+    exactness check, and the launches of the ``"auto"`` searches."""
+    parts = idx._sync_device()
+    q_codes, q_lanes = pack_codes(queries)
+    reps_q = -(-max(ROUTE_QS) // len(queries))
+    q_all = torch.from_numpy(np.tile(q_codes, (reps_q, 1)).view(np.int32)).to(dev)
+    l_all = torch.from_numpy(np.tile(q_lanes, reps_q)).to(dev)
+    table = {}  # (lanes, Q) -> (popc ms, mma ms)
+    for lanes, p in sorted(parts.items()):
+        for nq in ROUTE_QS:
+            q_packed = q_all[:nq].contiguous()
+            min_lanes, q_scale = query_prefix(l_all[:nq].contiguous(), lanes * 32)
+            args = (q_packed, min_lanes, q_scale, p.packed_dev, p.valid_dev)
+            if not torch.equal(hs.blockmax(*args), hs.blockmax_mma_packed(*args)):
+                raise AssertionError(f"{lanes * 32}-bit partition, Q={nq}: blockmax_mma_packed differs from blockmax")
+            reps = 20 if nq <= 64 else 5
+            table[lanes, nq] = tuple(
+                time_ms(functools.partial(fn, *args), dev, reps, graph=True) for fn in (hs.blockmax, hs.blockmax_mma_packed)
+            )
+    log(f"[route] phase 1 per partition, ms by the device's clock (CUDA-graph replays), popc / mma, "
+        f"blockmax_mma_packed == blockmax at all {len(table)} points; capacities "
+        f"{ {lanes: p.cap for lanes, p in sorted(parts.items())} }")
+    log("[route]     Q  " + "  ".join(f"{lanes * 32:>4d}-bit popc    mma" for lanes in sorted(parts)) + "   all: popc     mma    auto")
+    for nq in ROUTE_QS:
+        cells = [table[lanes, nq] for lanes in sorted(parts)]
+        auto_ms = sum(table[lanes, nq][auto_phase1(nq, lanes) == "mma"] for lanes in parts)
+        log(f"[route] {nq:5d}  " + "  ".join(f"{a:13.4f} {b:6.4f}" for a, b in cells)
+            + f"   {sum(a for a, _ in cells):9.4f} {sum(b for _, b in cells):7.4f} {auto_ms:7.4f}")
+    for lanes in sorted(parts):
+        wins = [nq for nq in ROUTE_QS if table[lanes, nq][1] < table[lanes, nq][0]]
+        cross = next((nq for nq in ROUTE_QS if all(m in wins for m in ROUTE_QS if m >= nq)), None)
+        picks = [nq for nq in ROUTE_QS if auto_phase1(nq, lanes) == "mma"]
+        log(f"[route] {lanes * 32}-bit: the wgmma kernel is faster at Q in {wins}"
+            + (f", at every measured Q from {cross}" if cross else ", and loses at the largest measured Q")
+            + f"; 'auto' takes it from Q={min(picks) if picks else None}")
+        for nq in ROUTE_QS:
+            popc_ms, mma_ms = table[lanes, nq]
+            took = mma_ms if auto_phase1(nq, lanes) == "mma" else popc_ms
+            if took > AUTO_SLACK * min(popc_ms, mma_ms):
+                raise AssertionError(
+                    f"{lanes * 32}-bit, Q={nq}: 'auto' takes {auto_phase1(nq, lanes)} at {took:.4f} ms, "
+                    f"more than {AUTO_SLACK}x the other kernel's {min(popc_ms, mma_ms):.4f} ms: the table in "
+                    "engine/device_index.py is out of date"
+                )
+
+    # Warm searches through the engine under each scan_kernel (the attribute
+    # the constructor argument sets), in rounds that alternate the order, so
+    # that the host clock's drift shows as spread between a kernel's rounds
+    # and not as a difference between kernels. Exactness checked every time.
+    q_keys, valid, ref_np, top_ref, sample = oracle
+    kernels = ("popc", "mma", "auto")
+    launches = dict.fromkeys(("blockmax", "blockmax_mma_packed"), 0)  # of the 'auto' searches, both batch sizes
+    for nq in (N_QUERIES, 1):
+        times = {kernel: [] for kernel in kernels}
+        rounds = {kernel: [] for kernel in kernels}
+        want_res = None  # the first round's 'popc' results
+        for rnd in range(ROUTE_ROUNDS):
+            for kernel in kernels if rnd % 2 == 0 else kernels[::-1]:
+                idx.scan_kernel = kernel
+                for fn in hs.PHASE1.values():
+                    fn.launches = 0
+                idx.search(queries[:nq], K)
+                res, t = warm_searches(idx, queries[:nq])
+                counts = {name: fn.launches // (len(t) + 1) for name, fn in hs.PHASE1.items()}
+                want = dict.fromkeys(hs.PHASE1, 0)
+                for lanes in parts:
+                    want[auto_phase1(nq, lanes) if kernel == "auto" else kernel] += 1
+                if counts != want:
+                    raise AssertionError(f"scan_kernel={kernel!r} Q={nq}: phase-1 launches per search {counts}, expected {want}")
+                if kernel == "auto":
+                    for name in launches:
+                        launches[name] += getattr(hs, name).launches
+                check_results(f"[route] {kernel} Q={nq}", res, q_keys[:nq], valid, ref_np, top_ref, sample[sample < nq])
+                want_res = want_res or res
+                if not same_results(res, want_res):
+                    raise AssertionError(f"scan_kernel={kernel!r} Q={nq}: results differ from scan_kernel='popc'")
+                times[kernel] += t
+                rounds[kernel].append(statistics.median(t) * 1e3)
+        for kernel in kernels:
+            log(f"[route] scan_kernel={kernel!r} Q={nq} k={K}: warm search median {statistics.median(times[kernel]) * 1e3:.3f} ms "
+                f"of {len(times[kernel])} (min {min(times[kernel]) * 1e3:.3f}, max {max(times[kernel]) * 1e3:.3f}; medians of the "
+                f"{ROUTE_ROUNDS} rounds " + ", ".join(f"{m:.3f}" for m in rounds[kernel]) + "); exact (brute force), equal to 'popc'")
+    idx.scan_kernel = "auto"
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the 'auto' searches did not launch both phase-1 kernels: {launches}")
+    log(f"[route] kernel launches of the 'auto' searches ({8 * ROUTE_ROUNDS} at Q=1, {8 * ROUTE_ROUNDS} at Q={N_QUERIES}): {launches}")
+    return launches
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).iterdir() if f.is_file())
+
+
+def phase_persist(rng, dev, idx3, queries3, tmp):
+    """BASELINE config 2 (1,048,576 x 256-bit codes, exact NPHD top-k with a
+    persisted snapshot) at its own size, then a save and reload of the
+    config-3 index of the earlier phases. Every step raises on a fault."""
+    n = N_PERSIST
+    path = Path(tmp) / "config2"
+    codes = rng.integers(0, 2**32, (n, 8), dtype=np.uint32)
+    lanes = np.full(n, 8, np.int32)
+    keys = np.arange(1, n + 1, dtype=">u8").view(np.uint8).reshape(n, 8)  # row r holds key r + 1
+    removed = np.arange(0, n, TOMBSTONE_EVERY)  # rows
+    idx = DeviceNphdIndex(path, shard_size=PERSIST_SHARD_BYTES, device="cuda")
+    t0 = time.perf_counter()
+    idx.add_packed(keys, codes, lanes)
+    if idx.remove((removed + 1).tolist()) != len(removed):
+        raise AssertionError("config 2: not every tombstoned key was found")
+    log(f"[persist] config 2: add_packed {n} x 256-bit codes, {len(removed)} removed: {time.perf_counter() - t0:.3f} s; "
+        f"shard_rows {idx.shard_rows}, dirty {idx.dirty}, serialized_length {idx.serialized_length}")
+    q_rows = np.arange(N_QUERIES, dtype=np.int64) * (n // N_QUERIES) // TOMBSTONE_EVERY * TOMBSTONE_EVERY + 1
+    queries = bodies_of(codes[q_rows], lanes[q_rows])
+    sample = np.linspace(0, N_QUERIES - 1, N_ORACLE).astype(np.int64)
+
+    def timed_searches(index, label):
+        t0 = time.perf_counter()
+        index.search(queries, K)
+        first_s = time.perf_counter() - t0
+        res, times = warm_searches(index, queries)
+        log(f"[persist] {label}: first search {first_s:.4f} s, warm search Q={N_QUERIES} k={K} median "
+            f"{statistics.median(times) * 1e3:.3f} ms of {len(times)} (min {times[0] * 1e3:.3f}, max {times[-1] * 1e3:.3f})")
+        return res
+
+    def check(label, res, all_codes, valid):
+        all_lanes = np.full(len(all_codes), 8, np.int32)
+        ref = brute_force(dev, all_codes[q_rows[sample]], all_lanes[q_rows[sample]], all_codes, all_lanes, valid)
+        check_results(f"[persist] ({label})", res, q_rows + 1, valid, ref.cpu().numpy(),
+                      torch.topk(ref, K, dim=1).values.cpu().numpy(), sample, first_key=1)
+
+    def reopen(label):
+        t0 = time.perf_counter()
+        index = DeviceNphdIndex(path, shard_size=PERSIST_SHARD_BYTES, device="cuda")
+        log(f"[persist] {label}: opened {len(index)} live keys of {index._rows} rows in {index.shard_count} shards "
+            f"in {time.perf_counter() - t0:.3f} s")
+        return index
+
+    valid = np.ones(n, bool)
+    valid[removed] = False
+    res_a = timed_searches(idx, "(a) before the save")
+    check("a", res_a, codes, valid)
+    t0 = time.perf_counter()
+    idx.save(wait=True)
+    save_s = time.perf_counter() - t0
+    names = sorted(f.name for f in path.iterdir())
+    n_seg = sum(name.startswith("seg-") for name in names)
+    if n_seg < 4 or idx.shard_count != n_seg + 1 or idx.dirty or "state.json" not in names:
+        raise AssertionError(f"config 2: {n_seg} sealed segments, shard_count {idx.shard_count}, dirty {idx.dirty}: {names}")
+    log(f"[persist] save(wait=True): {save_s:.3f} s, {_dir_bytes(path)} bytes in {len(names)} files "
+        f"({n_seg} sealed segments, one active, one validity bitmap, state.json)")
+    idx.close()
+    idx.close()  # idempotent
+
+    idx = reopen("(b) reopened")
+    res_b = timed_searches(idx, "(b) after the reload")
+    if not same_results(res_a, res_b):
+        raise AssertionError("config 2: the reloaded index answers differently from the saved one")
+    log(f"[persist] (a) == (b): the same keys and scores for all {N_QUERIES} queries, and (a) equals brute force")
+
+    new_codes = rng.integers(0, 2**32, (N_APPEND, 8), dtype=np.uint32)
+    idx.add(list(range(n + 1, n + N_APPEND + 1)), bodies_of(new_codes, np.full(N_APPEND, 8, np.int32)))
+    more_removed = np.arange(7, n, 1021)  # rows still live that are no query's own
+    more_removed = more_removed[valid[more_removed] & ~np.isin(more_removed, q_rows)]
+    if idx.remove((more_removed + 1).tolist()) != len(more_removed):
+        raise AssertionError("config 2: not every key of the second removal was found")
+    t0 = time.perf_counter()
+    idx.save(wait=False)
+    scheduled_s = time.perf_counter() - t0
+    idx.drain_rotations()
+    log(f"[persist] +{N_APPEND} rows via add, -{len(more_removed)} keys; save(wait=False) returned in {scheduled_s:.3f} s, "
+        f"drained in {time.perf_counter() - t0:.3f} s; {_dir_bytes(path)} bytes on disk")
+    idx.close()
+    all_codes = np.concatenate([codes, new_codes])
+    valid = np.concatenate([valid, np.ones(N_APPEND, bool)])
+    valid[more_removed] = False
+    idx = reopen("(c) reopened")
+    if len(idx) != int(valid.sum()):
+        raise AssertionError(f"config 2 (c): {len(idx)} live keys, expected {int(valid.sum())}")
+    check("c", timed_searches(idx, "(c) after add, remove, background save, reload"), all_codes, valid)
+
+    t0 = time.perf_counter()
+    idx.compact()
+    compact_s = time.perf_counter() - t0
+    if idx.tombstone_fraction != 0.0 or idx._rows != int(valid.sum()):
+        raise AssertionError("config 2: compact() left tombstones")
+    t0 = time.perf_counter()
+    idx.save(wait=True)
+    log(f"[persist] compact(): {compact_s:.3f} s; save(wait=True): {time.perf_counter() - t0:.3f} s; "
+        f"{_dir_bytes(path)} bytes on disk")
+    idx.close()
+    idx = reopen("(d) reopened")
+    check("d", timed_searches(idx, "(d) after compact, save, reload"), all_codes, valid)
+    idx.close()
+    log("[persist] (c) and (d) equal brute force over all rows (self-match, no removed key, score multisets, "
+        f"every row's score, {N_ORACLE} sampled queries)")
+
+    # The config-3 index of the slice: saved, closed, opened anew.
+    before = idx3.search(queries3, K)
+    t0 = time.perf_counter()
+    idx3.save(wait=True)
+    save_s = time.perf_counter() - t0
+    rows3, live3, nbytes = idx3._rows, len(idx3), _dir_bytes(idx3.path)
+    idx3.close()
+    t0 = time.perf_counter()
+    again = DeviceNphdIndex(idx3.path, device="cuda")
+    load_s = time.perf_counter() - t0
+    if (again._rows, len(again)) != (rows3, live3) or not same_results(before, again.search(queries3, K)):
+        raise AssertionError("config 3: the reloaded index differs from the saved one")
+    log(f"[persist] config 3 ({rows3} rows, {live3} live): save(wait=True) {save_s:.3f} s, {nbytes} bytes; "
+        f"reload {load_s:.3f} s; the reloaded index returns the same keys and scores")
+    again.close()
 
 
 def _experiment_data(dev, n, nq, seed):
@@ -673,18 +962,20 @@ def phase_experiments(dev):
     return launches, stats
 
 
-def phase_profile(idx, queries, reps=5):
-    """Where one warm search's time goes.
+def phase_profile(idx, queries, scan_kernel, reps=5):
+    """Where one warm search's time goes, under ``scan_kernel``.
 
     - Host split (host clock): query packing and kernel launches, waiting
       for the device, and the host merge of the partitions' candidates.
     - Device time by kernel over ``reps`` searches (``torch.profiler``,
       kernel events only), and the device's busy share of that window. The
-      trace goes to ``build/chip_smoke_trace.json``.
+      trace goes to ``build/chip_smoke_trace_<scan_kernel>_q<Q>.json``.
     """
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    idx.scan_kernel = scan_kernel
+    tag = f"[profile {scan_kernel} Q={len(queries)}]"
     collect = idx._collect_results
     split = {"prep_launch": [], "device_wait": [], "host_merge": []}
 
@@ -706,7 +997,7 @@ def phase_profile(idx, queries, reps=5):
             idx.search(queries, K)
     finally:
         del idx._collect_results
-    log("[profile] host split of a warm search (median ms): "
+    log(f"{tag} host split of a warm search (median ms): "
         + ", ".join(f"{name} {statistics.median(v) * 1e3:.3f}" for name, v in split.items()))
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -721,13 +1012,13 @@ def phase_profile(idx, queries, reps=5):
             us, n = by_kernel.get(evt.name, (0.0, 0))
             by_kernel[evt.name] = (us + evt.time_range.elapsed_us(), n + 1)
     busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
-    log(f"[profile] {reps} searches under the profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+    log(f"{tag} {reps} searches under the profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
         f"({100 * busy_ms / wall_ms:.1f}% of the window)")
     for name, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:12]:
-        log(f"[profile] {us / 1e3 / reps:9.4f} ms/search  x{n // reps:<3d} {name[:90]}")
+        log(f"{tag} {us / 1e3 / reps:9.4f} ms/search  x{n // reps:<3d} {name[:90]}")
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / "chip_smoke_trace.json"))
+    prof.export_chrome_trace(str(out / f"chip_smoke_trace_{scan_kernel}_q{len(queries)}.json"))
 
 
 def main():
@@ -745,11 +1036,16 @@ def main():
     part_rows = {int(lv): int(c) for lv, c in zip(*np.unique(lanes, return_counts=True))}
     log(f"[data] {N_ROWS} codes, rows per lane count: {part_rows}")
     stats = phase_kernels(rng, dev, part_rows)
-    launches, idx, queries = phase_slice(rng, dev, codes, lanes)
-    launches.update(phase_twin(dev, idx, queries))
-    if args.profile:
-        phase_profile(idx, queries)
-    del idx
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        launches, idx, queries, oracle = phase_slice(rng, dev, codes, lanes, Path(tmp) / "config3")
+        del codes, lanes
+        launches.update(phase_twin(dev, idx, queries))
+        launches.update(phase_route(dev, idx, queries, oracle))
+        if args.profile:
+            for scan_kernel, batch in (("popc", queries), ("auto", queries), ("auto", queries[:1])):
+                phase_profile(idx, batch, scan_kernel)
+        phase_persist(rng, dev, idx, queries, tmp)
+        del idx, oracle
     exp_launches, exp_stats = phase_experiments(dev)
     launches.update(exp_launches)
     stats.update(exp_stats)

@@ -1,6 +1,7 @@
 """
-Device-resident packed-code NPHD index in PyTorch (port of the in-memory
-core of ``iscc_search_tpu/engine/device_index.py``).
+Device-resident packed-code NPHD index in PyTorch (port of
+``iscc_search_tpu/engine/device_index.py``: the host arrays, the device
+mirror, the exact search and the segment persistence).
 
 - Codes live on the host as a bit-packed ``(N, 8)`` uint32 lane matrix plus
   per-row lane counts, keys and a validity bitmap. Updates tombstone the old
@@ -12,17 +13,35 @@ core of ``iscc_search_tpu/engine/device_index.py``).
 - Search runs, per partition, the exact two-phase scan of
   :mod:`iscc_search_tpu_torch.ops.hopper_scan` (phase-1 block-max kernel,
   hierarchical top-k blocks, phase-3 gather-rescore kernel, final top-k),
-  then merges the partitions' candidates on the host.
+  then merges the partitions' candidates on the host. Phase 1 has two
+  kernels that return the same block maxima bit for bit, XOR + popc and the
+  int8 tensor cores (``wgmma``); ``scan_kernel`` forces one (``"popc"``,
+  ``"mma"``) or, as ``"auto"``, takes per partition the one that
+  :func:`auto_phase1` names for the batch size and the partition's width.
+- Persistence is the JAX engine's, file for file: sealed immutable segments
+  of ``shard_size`` bytes (``seg-%08d.npz``, written once), a rewritable
+  active segment and a validity bitmap under a fresh name on every save
+  (``active-%08d.npz``, ``valid-%08d.npz``), each written to a temporary
+  file, fsynced and renamed, one directory fsync, then the ``state.json``
+  rename as the commit point; superseded files go only after it. Saves
+  snapshot the arrays under the lock and write on a background worker;
+  queued snapshots coalesce by sequence. A directory saved by either
+  package loads in the other. ``path=None`` is an in-memory index that
+  never saves.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): persistence (``save``, ``compact``, loading a saved directory), the
-multi-device ``mesh``, the multi-host ``control_hook`` and ``scan_kernel``
-values other than ``"auto"``.
+item): the multi-device ``mesh``, the multi-host ``control_hook`` and
+``scan_kernel="pallas"`` (the port has no Pallas and no XLA scan).
 """
 
 from __future__ import annotations
 
+import io
 import itertools
+import json
+import logging
+import os
+import tempfile
 import threading
 from pathlib import Path
 
@@ -35,9 +54,12 @@ from iscc_search_tpu_torch.ops.packing import MAX_LANES, pack_codes, unpack_code
 _MIN_DEVICE_ROWS = 8192  # device partition capacity floor
 _CAP_QUANTUM = 65536  # partition capacity granularity above the floor
 
-_TODO_PERSISTENCE = "ROADMAP.md, 'Modules to port' item 1: persistence"
-_TODO_PARALLEL = "ROADMAP.md, 'Modules to port' item 5: parallel/* on torch.distributed"
-_TODO_KNOBS = "ROADMAP.md, 'Modules to port' item 6: knobs"
+logger = logging.getLogger(__name__)
+
+_TODO_PARALLEL = "ROADMAP.md, 'Modules still to port': parallel/* on torch.distributed"
+_TODO_KNOBS = "ROADMAP.md, 'Modules still to port': knobs"
+
+SCAN_KERNELS = ("auto", "mma", "popc")
 
 # Row-space generations are unique across instances, as in the JAX engine.
 _ROW_GEN_COUNTER = itertools.count(1)
@@ -72,6 +94,67 @@ def _to_device(array, device):
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
+# scan_kernel="auto": the smallest batch for which phase 1 of a partition
+# goes to the tensor-core kernel, by the partition's lane count. Below it the
+# XOR + popc kernel wins: its time falls with the batch, while the tensor-core
+# kernel pays a fixed price per 128-row block for any batch up to 128
+# queries. Taken from the [route] table of chip_smoke.py (NVIDIA H100 80GB
+# HBM3, 700.00 W; PERF.md section 6), which fails when the table goes stale.
+_AUTO_MMA_MIN_Q = {2: 48, 4: 48, 6: 32, 8: 32}
+
+
+def auto_phase1(nq, lanes):
+    # type: (int, int) -> str
+    """The phase-1 kernel ``scan_kernel="auto"`` takes for a batch of ``nq``
+    queries on a partition of ``lanes`` lanes: ``"mma"`` or ``"popc"``
+    (keys of ``hopper_scan.PHASE1``). An odd lane count reads the next even
+    one's entry, the nearest measured width that does no less work."""
+    return "mma" if nq >= _AUTO_MMA_MIN_Q[min(MAX_LANES, lanes + lanes % 2)] else "popc"
+
+
+def _fsync_dir(path):
+    # type: (Path) -> None
+    dfd = os.open(str(path), os.O_RDONLY)
+    try:
+        os.fsync(dfd)
+    finally:
+        os.close(dfd)
+
+
+def _atomic_write(path, data, sync_dir=True):
+    # type: (Path, bytes, bool) -> None
+    """Write bytes durably: temp file + fsync + rename + DIRECTORY fsync.
+
+    Without the directory fsync the rename itself is neither durable nor
+    ordered across power loss: a later rename (the manifest) could survive
+    while an earlier one (a segment) is lost, leaving the manifest
+    referencing a missing file. Batch writers pass sync_dir=False per file
+    and make ONE directory fsync before the manifest instead (the required
+    ordering is only data-renames-durable-before-manifest-rename)."""
+    fd, tmp = tempfile.mkstemp(dir=str(path.parent), prefix=path.name, suffix=".tmp")
+    try:
+        with os.fdopen(fd, "wb") as fh:
+            fh.write(data)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(tmp, path)
+        if sync_dir:
+            _fsync_dir(path.parent)
+    except BaseException:
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
+        raise
+
+
+def _npz_bytes(**arrays):
+    # type: (...) -> bytes
+    buf = io.BytesIO()
+    np.savez(buf, **arrays)
+    return buf.getvalue()
+
+
 class _Partition:
     """Device mirror of one code-length partition."""
 
@@ -87,7 +170,8 @@ class _Partition:
 
 class PackedCodeIndex:
     """
-    Packed host arrays + per-length device partitions + exact search.
+    Packed host arrays + per-length device partitions + exact search +
+    segment persistence.
 
     Subclasses fix the metric and key width.
     """
@@ -114,30 +198,32 @@ class PackedCodeIndex:
     ):
         # type: (str | Path | None, int, int, int | None, float | None, str, object, str | torch.device) -> None
         """
-        Create an empty in-memory index. The parameters up to ``mesh`` are
-        the JAX engine's, in its order.
+        Create or open a packed-code index directory. The parameters up to
+        ``mesh`` are the JAX engine's, in its order.
 
-        :param path: index directory; only a directory without a saved index
-            is accepted (loading and saving are not ported yet)
+        :param path: segment directory (created by the first save; a saved
+            index found there is loaded), or None for an in-memory index
+            that never saves
         :param max_dim: maximum code width in bits
-        :param shard_size: bytes per sealed segment; sets ``shard_rows`` as
-            the JAX engine does (segments come with persistence)
+        :param shard_size: seal an immutable segment after this many bytes
         :param ndim: fixed code width in bits for the hamming metric
         :param recall_target: accepted for API parity and served EXACTLY —
             exact results meet any recall target; ``>= 1.0`` becomes None
-        :param scan_kernel: "auto" only (the Hopper kernels on CUDA, their
-            plain versions on the CPU)
+        :param scan_kernel: the phase-1 kernel on CUDA: "popc" (XOR + popc),
+            "mma" (int8 tensor cores) or "auto" (per partition and batch,
+            :func:`auto_phase1`); the results are the same. On the CPU every
+            value runs the plain version.
         :param mesh: must be None (single device)
         :param device: torch device of the partitions, "cuda" by default;
             nothing is auto-detected
         """
         if mesh is not None:
             raise NotImplementedError(f"multi-device mesh search is not ported yet ({_TODO_PARALLEL})")
-        if scan_kernel != "auto":
-            raise NotImplementedError(f"scan_kernel={scan_kernel!r} is not ported yet ({_TODO_KNOBS})")
+        if scan_kernel not in SCAN_KERNELS:
+            raise NotImplementedError(
+                f"scan_kernel={scan_kernel!r} is not ported: the port has {SCAN_KERNELS} ({_TODO_KNOBS})"
+            )
         self.path = Path(path) if path is not None else None
-        if self.path is not None and (self.path / "state.json").exists():
-            raise NotImplementedError(f"loading a saved index is not ported yet ({_TODO_PERSISTENCE})")
         self.max_dim = max_dim
         self.ndim = ndim
         self.max_lanes = MAX_LANES
@@ -146,6 +232,9 @@ class PackedCodeIndex:
         self.scan_kernel = scan_kernel
         self.mesh = None
         self.device = torch.device(device)
+        # An in-memory index has no directory to save to (a follower of the
+        # JAX engine's multi-host service turns this off the same way).
+        self.save_enabled = self.path is not None
         self._lock = threading.RLock()
 
         cap = _MIN_DEVICE_ROWS
@@ -157,10 +246,38 @@ class PackedCodeIndex:
         self._row_gen = next(_ROW_GEN_COUNTER)
         self._key_to_row = {}  # type: dict[bytes, int] | None  # None = lazy (built by _keymap)
         self._live = 0  # live (non-tombstoned) key count
+        self.dirty = 0  # unsaved key mutations since last save
+        self._segments = []  # type: list[dict]  # {"file", "start", "rows"} sealed on disk
         self._partitions = None  # type: dict[int, _Partition] | None
         self._device_stale = True
         self._synced_rows = 0  # host rows already mirrored on the device
         self._valid_dirty = False  # tombstones changed since the last sync
+        self._closed = False
+        # Background save worker: latest snapshot pending (coalesced) + the
+        # one in flight; drain_rotations()/close() join both.
+        self._save_cv = threading.Condition()
+        self._save_queue = None  # type: dict | None
+        self._save_inflight = False
+        self._save_stop = False
+        self._save_thread = None  # type: threading.Thread | None
+        self._written_seq = 0  # highest snapshot seq successfully on disk
+        self._resave_all = False  # a failed write must re-emit sealed files
+        # Sealed segments not yet confirmed written (queued snapshots can be
+        # coalesced away; their seals must ride the NEXT snapshot instead).
+        self._unconfirmed_seals = set()  # type: set[str]
+        # Monotonic counters: every snapshot gets a sequence number (older
+        # snapshots must never replace newer ones in the coalescing queue)
+        # and every emitted data file gets a unique name (the old manifest
+        # keeps referencing the OLD files until the new manifest commits).
+        self._save_seq = 0
+        self._file_seq = 0
+        # Files no manifest-to-be references anymore; unlinked by the save
+        # worker only AFTER a newer manifest commits (never eagerly: the
+        # on-disk manifest may still reference them).
+        self._pending_deletes = set()  # type: set[str]
+
+        if self.path is not None and (self.path / "state.json").exists():
+            self._load()
 
     @classmethod
     def from_arrays(cls, keys, codes, nlanes, valid, **kwargs):
@@ -182,6 +299,7 @@ class PackedCodeIndex:
         idx._rows = n
         idx._key_to_row = None  # built from the validity bitmap on first use
         idx._live = int(np.count_nonzero(idx._valid[:n]))
+        idx.dirty = n
         return idx
 
     # -- public API -------------------------------------------------------------
@@ -229,6 +347,25 @@ class PackedCodeIndex:
                     self._key_to_row = km
         return km
 
+    @property
+    def shard_count(self):
+        # type: () -> int
+        active_rows = self._rows - (self._segments[-1]["start"] + self._segments[-1]["rows"] if self._segments else 0)
+        return len(self._segments) + (1 if active_rows > 0 or not self._segments else 0)
+
+    @property
+    def serialized_length(self):
+        # type: () -> int
+        """Estimated serialized bytes of live state (monitoring)."""
+        return self._rows * self.ROW_BYTES
+
+    @property
+    def tombstone_fraction(self):
+        # type: () -> float
+        if self._rows == 0:
+            return 0.0
+        return 1.0 - self._live / self._rows
+
     def add(self, keys, vectors):
         # type: (list, list[bytes]) -> None
         """
@@ -265,6 +402,7 @@ class PackedCodeIndex:
             for row in batch_dup_rows:
                 self._valid[row] = False
             self._rows += n
+            self.dirty += n
             self._device_stale = True
 
     def add_packed(self, keys, packed, nlanes):
@@ -312,6 +450,7 @@ class PackedCodeIndex:
                     km[buf[i * width : (i + 1) * width]] = start + i
             self._rows += n
             self._live += n
+            self.dirty += n
             self._device_stale = True
 
     def remove(self, keys):
@@ -326,6 +465,7 @@ class PackedCodeIndex:
                     self._valid[row] = False
                     self._live -= 1
                     removed += 1
+                    self.dirty += 1
             if removed:
                 self._device_stale = True
                 self._valid_dirty = True
@@ -380,15 +520,241 @@ class PackedCodeIndex:
 
     def save(self, wait=True):
         # type: (bool) -> None
-        raise NotImplementedError(f"saving is not ported yet ({_TODO_PERSISTENCE})")
+        """
+        Persist sealed segments (write-once), the active segment, the validity
+        bitmap, and the state manifest. Atomic per file; the manifest rename is
+        the commit point. Compacts first when tombstones dominate.
+
+        The arrays are snapshotted under the lock (a memcpy) and written by a
+        background worker, so concurrent ``add``/``search`` never stall on
+        file I/O. ``wait=False`` returns after scheduling; queued snapshots
+        coalesce (a newer snapshot's manifest supersedes an older one), so at
+        most one write queues behind the one in flight.
+        """
+        if not self.save_enabled:
+            return
+        with self._lock:
+            if self.tombstone_fraction > 0.5 and self._rows > _MIN_DEVICE_ROWS:
+                self._compact_locked()
+            snapshot = self._snapshot_locked()
+            self.dirty = 0
+        self._enqueue_save(snapshot, wait=wait)
+
+    def _snapshot_locked(self):
+        # type: () -> dict
+        """Copy everything one save needs; caller holds the lock.
+
+        Every sealed segment whose write has not been CONFIRMED on disk is
+        (re-)included: a queued snapshot may be superseded by a newer one
+        before the worker writes it (coalescing), and a manifest must never
+        reference a seg file that only a dropped or failed snapshot carried.
+        """
+        writes = []  # (descriptor, keys, codes, nlanes) per segment file
+        emitted = set()
+        sealed_rows = self._segments[-1]["start"] + self._segments[-1]["rows"] if self._segments else 0
+        if self._resave_all:
+            # A previous write failed after sealing in memory: re-emit every
+            # sealed file so the next manifest never references a missing one.
+            for seg in self._segments:
+                writes.append(self._segment_snapshot(seg))
+                emitted.add(seg["file"])
+            self._resave_all = False
+        else:
+            for seg in self._segments:
+                if seg["file"] in self._unconfirmed_seals:
+                    writes.append(self._segment_snapshot(seg))
+                    emitted.add(seg["file"])
+        while self._rows - sealed_rows >= self.shard_rows:
+            self._file_seq += 1
+            seg = {
+                "file": f"seg-{self._file_seq:08d}.npz",  # unique, never reused
+                "start": sealed_rows,
+                "rows": self.shard_rows,
+            }
+            self._segments.append(seg)
+            writes.append(self._segment_snapshot(seg))
+            emitted.add(seg["file"])
+            sealed_rows += self.shard_rows
+        self._unconfirmed_seals.update(emitted)
+        # Fresh names for the rewritable files on EVERY save: overwriting
+        # them in place would invalidate the data the still-committed OLD
+        # manifest references; a crash between the data write and the
+        # manifest rename must leave the old state loadable.
+        self._save_seq += 1
+        seq = self._save_seq
+        active = {"file": f"active-{seq:08d}.npz", "start": sealed_rows, "rows": self._rows - sealed_rows}
+        valid_file = f"valid-{seq:08d}.npz"
+        writes.append(self._segment_snapshot(active))
+        state = {
+            "rows": self._rows,
+            "max_dim": self.max_dim,
+            "ndim": self.ndim,
+            "key_bytes": self.key_bytes,
+            "segments": list(self._segments),
+            "active": active,
+            "valid_file": valid_file,
+            "save_seq": seq,
+            "file_seq": self._file_seq,
+        }
+        # Previous active/valid files are unreferenced once THIS manifest
+        # commits; queue them for post-commit deletion (the worker unlinks
+        # only after the rename, and a superseding snapshot inherits them).
+        self._pending_deletes.add(f"active-{seq - 1:08d}.npz")
+        self._pending_deletes.add(f"valid-{seq - 1:08d}.npz")
+        self._pending_deletes.update({"active.npz", "valid.npy"})  # legacy fixed names
+        self._pending_deletes.discard(active["file"])
+        self._pending_deletes.discard(valid_file)
+        return {
+            "seq": seq,
+            "writes": writes,
+            "valid": self._valid[: self._rows].copy(),
+            "valid_file": valid_file,
+            "state": state,
+            "sealed_files": sorted(emitted),
+            "delete_after": sorted(self._pending_deletes),
+        }
+
+    def _segment_snapshot(self, seg):
+        # type: (dict) -> tuple
+        s, n = seg["start"], seg["rows"]
+        return (
+            seg,
+            self._keys[s : s + n].copy(),
+            self._codes[s : s + n].copy(),
+            self._nlanes[s : s + n].copy(),
+        )
+
+    def _enqueue_save(self, snapshot, wait):
+        # type: (dict, bool) -> None
+        with self._save_cv:
+            if self._save_thread is None or not self._save_thread.is_alive():
+                self._save_stop = False
+                self._save_thread = threading.Thread(
+                    target=self._save_worker, name=f"save-{self.path.name}", daemon=True
+                )
+                self._save_thread.start()
+            # Coalesce by SEQUENCE: an older snapshot (taken before, enqueued
+            # after: snapshot and enqueue are not atomic) must never replace
+            # a newer one in the queue, NOR be written after a newer one that
+            # the worker already dequeued/committed (the written-seq
+            # watermark): snapshots are full-state, so newer subsumes older.
+            if snapshot["seq"] > self._written_seq and (
+                self._save_queue is None or snapshot["seq"] > self._save_queue["seq"]
+            ):
+                self._save_queue = snapshot
+            self._save_cv.notify_all()
+            if wait:
+                self._save_cv.wait_for(lambda: self._save_queue is None and not self._save_inflight)
+
+    def _save_worker(self):
+        # type: () -> None
+        while True:
+            with self._save_cv:
+                self._save_cv.wait_for(lambda: self._save_queue is not None or self._save_stop)
+                if self._save_queue is None:
+                    return
+                snapshot = self._save_queue
+                self._save_queue = None
+                if snapshot["seq"] <= self._written_seq:
+                    self._save_cv.notify_all()
+                    continue
+                self._save_inflight = True
+            try:
+                self._write_snapshot(snapshot)
+                with self._save_cv:
+                    self._written_seq = max(self._written_seq, snapshot["seq"])
+                with self._lock:
+                    if snapshot.get("sealed_files"):
+                        self._unconfirmed_seals.difference_update(snapshot["sealed_files"])
+                    self._pending_deletes.difference_update(snapshot.get("delete_after", ()))
+            except Exception:
+                # The one place a failed write is survived: the next save
+                # re-emits every sealed file and the index counts as dirty.
+                logger.exception(f"background save failed for {self.path}")
+                with self._lock:
+                    self._resave_all = True
+                    self.dirty += 1  # state on disk is stale again
+            finally:
+                with self._save_cv:
+                    self._save_inflight = False
+                    self._save_cv.notify_all()
+
+    def _write_snapshot(self, snapshot):
+        # type: (dict) -> None
+        self.path.mkdir(parents=True, exist_ok=True)
+        for seg, keys, codes, nlanes in snapshot["writes"]:
+            payload = _npz_bytes(keys=keys, codes=codes, nlanes=nlanes)
+            _atomic_write(self.path / seg["file"], payload, sync_dir=False)
+        _atomic_write(self.path / snapshot["valid_file"], _npz_bytes(valid=snapshot["valid"]), sync_dir=False)
+        # ONE directory fsync makes all the data renames above durable
+        # BEFORE the manifest rename can be (ordering is all that matters;
+        # per-file dir fsyncs would pay N+2 disk barriers for the same
+        # guarantee).
+        _fsync_dir(self.path)
+        # The manifest rename is the commit point: every file above has a
+        # fresh name, so a crash anywhere before this line leaves the OLD
+        # manifest with all of ITS files intact.
+        _atomic_write(self.path / "state.json", json.dumps(snapshot["state"]).encode())
+        # Only now are the superseded files unreferenced by the on-disk state.
+        for name in snapshot.get("delete_after", ()):
+            try:
+                (self.path / name).unlink()
+            except OSError:
+                pass
 
     def compact(self):
         # type: () -> None
-        raise NotImplementedError(f"compaction is not ported yet ({_TODO_PERSISTENCE})")
+        """Drop tombstoned rows and rewrite all segments on next save."""
+        with self._lock:
+            self._compact_locked()
+
+    def reset(self):
+        # type: () -> None
+        """Release in-memory and device resources (files untouched)."""
+        with self._lock:
+            cap = _MIN_DEVICE_ROWS
+            self._keys = np.zeros((cap, self.key_bytes), dtype=np.uint8)
+            self._codes = np.zeros((cap, self.max_lanes), dtype=np.uint32)
+            self._nlanes = np.zeros((cap,), dtype=np.int32)
+            self._valid = np.zeros((cap,), dtype=bool)
+            self._rows = 0
+            self._row_gen = next(_ROW_GEN_COUNTER)
+            self._key_to_row = {}
+            self._live = 0
+            self._segments = []
+            self._unconfirmed_seals = set()
+            self._partitions = None
+            self._device_stale = True
+            self._synced_rows = 0
+            self._valid_dirty = False
+            self.dirty = 0
+
+    def drain_rotations(self):
+        # type: () -> None
+        """Block until every queued/in-flight background save is on disk."""
+        with self._save_cv:
+            self._save_cv.wait_for(lambda: self._save_queue is None and not self._save_inflight)
 
     def close(self):
         # type: () -> None
-        """Release the device mirror (nothing is persisted)."""
+        """Drain background saves, save if dirty, release device memory. Idempotent."""
+        with self._lock:
+            if self._closed:
+                return
+            self._closed = True
+        self.drain_rotations()
+        # Read dirty only AFTER the drain: a background write that failed
+        # during the drain re-marks the index dirty (_resave_all), and that
+        # state must not be lost at shutdown.
+        with self._lock:
+            dirty = self.dirty
+        if dirty:
+            self.save(wait=True)
+        with self._save_cv:
+            self._save_stop = True
+            self._save_cv.notify_all()
+        if self._save_thread is not None:
+            self._save_thread.join(timeout=60)
         with self._lock:
             self._partitions = None
             self._synced_rows = 0
@@ -414,7 +780,10 @@ class PackedCodeIndex:
             # k as the JAX engine buckets it (pow2, at most the partition);
             # trimmed to `count` in _collect_results.
             k = min(_pow2ceil(max(1, count)), cap)
-            scores, rows = blockmax_topk_packedq_impl(q_codes_dev, q_lanes_dev, packed_dev, valid_dev, k, lanes * 32)
+            phase1 = auto_phase1(len(query_bodies), lanes) if self.scan_kernel == "auto" else self.scan_kernel
+            scores, rows = blockmax_topk_packedq_impl(
+                q_codes_dev, q_lanes_dev, packed_dev, valid_dev, k, lanes * 32, phase1=phase1
+            )
             pending.append((row_map, scores, rows))
         return self._collect_results(pending, len(query_bodies), count, keys_snapshot, return_rows)
 
@@ -490,6 +859,143 @@ class PackedCodeIndex:
         self._codes = grow(self._codes, (new_cap, self.max_lanes))
         self._nlanes = grow(self._nlanes, (new_cap,))
         self._valid = grow(self._valid, (new_cap,))
+
+    def _compact_locked(self):
+        # type: () -> None
+        live = np.flatnonzero(self._valid[: self._rows])
+        n = len(live)
+        cap = max(_MIN_DEVICE_ROWS, _pow2ceil(max(1, n)))
+        keys = np.zeros((cap, self.key_bytes), dtype=np.uint8)
+        codes = np.zeros((cap, self.max_lanes), dtype=np.uint32)
+        nlanes = np.zeros((cap,), dtype=np.int32)
+        valid = np.zeros((cap,), dtype=bool)
+        keys[:n] = self._keys[live]
+        codes[:n] = self._codes[live]
+        nlanes[:n] = self._nlanes[live]
+        valid[:n] = True
+        self._keys, self._codes, self._nlanes, self._valid = keys, codes, nlanes, valid
+        self._rows = n
+        self._row_gen = next(_ROW_GEN_COUNTER)  # live rows renumbered
+        self._key_to_row = {self._keys[i].tobytes(): i for i in range(n)}
+        self._live = n
+        # All previously sealed segments are invalidated by the rewrite, but
+        # the committed manifest still references them, so deletion must
+        # wait until a NEW manifest lands (a crash before that must reload
+        # the old, pre-compaction state intact).
+        for seg in self._segments:
+            self._pending_deletes.add(seg["file"])
+        self._segments = []
+        self._unconfirmed_seals = set()
+        self._partitions = None  # row space rewritten: full device rebuild
+        self._synced_rows = 0
+        self._valid_dirty = False
+        self._device_stale = True
+        self.dirty += 1  # force persistence of the rewritten layout
+
+    def _load(self):
+        # type: () -> None
+        state = json.loads((self.path / "state.json").read_text())
+        if state.get("key_bytes") != self.key_bytes:
+            raise ValueError(
+                f"index at {self.path} has key_bytes={state.get('key_bytes')}, expected {self.key_bytes}"
+            )
+        self.max_dim = state["max_dim"]
+        self.ndim = state.get("ndim")
+        rows = state["rows"]
+        self._save_seq = state.get("save_seq", 0)
+        self._file_seq = state.get("file_seq", 0)
+        active_name = state["active"]["file"]
+        self._ensure_capacity(max(rows, 1))
+        pos = 0
+        self._segments = []
+        for seg in state["segments"] + [state["active"]]:
+            f = self.path / seg["file"]
+            if not f.exists():
+                # The manifest is written last, so a crash cannot leave it
+                # ahead of its files; a file deleted afterwards is tolerated
+                # by truncating the load at the gap.
+                break
+            with np.load(f) as z:
+                n = z["keys"].shape[0]
+                self._keys[pos : pos + n] = z["keys"]
+                self._codes[pos : pos + n] = z["codes"]
+                self._nlanes[pos : pos + n] = z["nlanes"]
+            if seg["file"] != active_name:
+                self._segments.append(seg)
+            pos += n
+        self._rows = pos
+        self._row_gen = next(_ROW_GEN_COUNTER)  # row space rebuilt from disk
+        # Versioned valid file (legacy stores used a fixed "valid.npy")
+        valid_f = self.path / state.get("valid_file", "valid.npy")
+        if valid_f.exists():
+            with np.load(valid_f) as z:
+                v = z["valid"]
+                self._valid[: min(len(v), pos)] = v[: min(len(v), pos)]
+        else:
+            self._valid[:pos] = True
+        # The key map is rebuilt lazily (first mutation/get, see _keymap). The
+        # persisted validity bitmap already says which rows were superseded, so the live
+        # count is just its popcount.
+        self._key_to_row = None
+        self._live = int(np.count_nonzero(self._valid[:pos]))
+        self._partitions = None
+        self._synced_rows = 0
+        self._valid_dirty = False
+        self._device_stale = True
+        self._gc_unreferenced(state)
+
+    def _gc_unreferenced(self, state):
+        # type: (dict) -> None
+        """Delete data files the committed manifest does not reference.
+
+        A crash after the manifest rename but before the worker's deferred
+        deletions leaves superseded files (and *.tmp residue) behind; they
+        are garbage and reclaimed here. SEQUENCE GUARD: only files whose
+        parsed sequence is <= the committed counters are deleted; files
+        with a HIGHER sequence belong to another live instance's in-flight
+        save (a probe opening the directory mid-save must not delete the
+        writer's fresh data before its manifest commits)."""
+        referenced = {seg["file"] for seg in state["segments"]}
+        referenced.add(state["active"]["file"])
+        referenced.add(state.get("valid_file", "valid.npy"))
+        save_seq = state.get("save_seq", 0)
+        file_seq = state.get("file_seq", 0)
+
+        def committed_seq(name):
+            # "active-00000007.npz" -> (7, save counter); "seg-00000003.npz"
+            # -> (3, file counter); unparseable -> None (never deleted here)
+            stem = name.split(".", 1)[0]
+            prefix, _, digits = stem.partition("-")
+            if not digits.isdigit():
+                return None
+            n = int(digits)
+            if prefix in ("active", "valid"):
+                return n <= save_seq
+            if prefix == "seg" and len(digits) == 8:
+                return n <= file_seq
+            return None
+
+        for f in self.path.iterdir():
+            name = f.name
+            if name in referenced or not f.is_file():
+                continue
+            if name.endswith(".tmp"):
+                # Crash residue from _atomic_write. Data-file tmps are
+                # seq-guarded via their target-name prefix (an in-flight
+                # writer's files carry a higher seq); manifest tmps
+                # (state.jsonXXX.tmp) are always safe to reclaim: deleting
+                # an in-flight one merely fails that save, which retries.
+                if committed_seq(name) is True or name.startswith("state.json"):
+                    try:
+                        f.unlink()
+                    except OSError:
+                        pass
+                continue
+            if name.endswith(".npz") and committed_seq(name) is True:
+                try:
+                    f.unlink()
+                except OSError:
+                    pass
 
     def _sync_device(self):
         # type: () -> dict[int, _Partition]

@@ -16,7 +16,10 @@ hand-written Hopper kernels (port of the Pallas path of
   ``_gather_rescore_kernel`` and ``_gather_rescore_packed_kernel``: it reads
   the packed rows, and returns the candidates in row order.
 
-The three phase-1 wrappers compute one function, bit for bit. The packed
+The three phase-1 wrappers compute one function, bit for bit, and
+:func:`blockmax_topk_impl` takes any of them by name (``phase1``, a key of
+:data:`PHASE1`); which one is fastest depends on the batch and the width,
+and the engine chooses (``scan_kernel`` of ``engine/device_index.py``). The packed
 partition ``(cap, lanes)`` int32 is the resting layout; the TPU engine's
 bit-transposed and permuted twins existed for its matrix unit and tiling
 and are not ported. Validity reaches phase 1 as a ``(cap,)`` uint8 mask in
@@ -276,6 +279,9 @@ def blockmax_mma_unpacked(q_packed, min_lanes, q_scale, db_unpacked, valid):
 
 blockmax_mma_unpacked.launches = 0
 
+# The phase-1 formulations blockmax_topk_impl chooses from, by name.
+PHASE1 = {"popc": blockmax, "mma": blockmax_mma_packed, "mma_twin": blockmax_mma_unpacked}
+
 
 # ----------------------------------------------------------------- phase 3
 
@@ -324,7 +330,9 @@ gather_rescore.launches = 0
 # ------------------------------------------------------- exact two-phase top-k
 
 
-def blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k, db_unpacked=None, unpacked=False):
+def blockmax_topk_impl(
+    q_packed, min_lanes, q_scale, db_packed, db_valid, k, db_unpacked=None, unpacked=False, phase1="popc"
+):
     # type: (...) -> tuple[torch.Tensor, torch.Tensor]
     """
     Exact top-k of one partition: phase 1 block maxima -> hierarchical top-k
@@ -335,22 +343,27 @@ def blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k, db_
     :param db_valid: (cap,) uint8 validity
     :param db_unpacked: optional (cap, nbits) int8 ±1 twin of ``db_packed``
         (:func:`build_unpacked_db`)
-    :param unpacked: run phase 1 from ``db_unpacked`` on the tensor cores
-        (:func:`blockmax_mma_unpacked`) instead of :func:`blockmax`; the
-        block maxima are the same bit for bit. Phase 3 reads the packed rows
-        either way.
+    :param unpacked: the JAX contract's name for ``phase1="mma_twin"``
+    :param phase1: the phase-1 formulation, a key of :data:`PHASE1`:
+        ``"popc"`` (:func:`blockmax`), ``"mma"`` (:func:`blockmax_mma_packed`,
+        the tensor cores from the packed rows) or ``"mma_twin"``
+        (:func:`blockmax_mma_unpacked`, the tensor cores from ``db_unpacked``).
+        The block maxima are the same bit for bit, and phase 3 reads the
+        packed rows whichever is taken.
     :return: (scores (Q, k) float32 desc, rows (Q, k) int32, -1 and NEG_SCORE
         where fewer than k valid rows exist)
     """
-    if unpacked and db_unpacked is None:
+    if unpacked:
+        phase1 = "mma_twin"
+    if phase1 not in PHASE1:
+        raise ValueError(f"phase1 must be one of {sorted(PHASE1)}, got {phase1!r}")
+    if phase1 == "mma_twin" and db_unpacked is None:
         raise ValueError("unpacked=True requires db_unpacked")
     n = db_packed.shape[0]
     q = q_packed.shape[0]
     total_blocks = n // BLOCK
-    if unpacked:
-        block_max = blockmax_mma_unpacked(q_packed, min_lanes, q_scale, db_unpacked, db_valid)
-    else:
-        block_max = blockmax(q_packed, min_lanes, q_scale, db_packed, db_valid)
+    db = db_unpacked if phase1 == "mma_twin" else db_packed
+    block_max = PHASE1[phase1](q_packed, min_lanes, q_scale, db, db_valid)
     kk = min(k, total_blocks)
     top_blocks = topk_blocks_hier(block_max, kk)  # (Q, kk) int64
     offsets = torch.arange(BLOCK, device=db_packed.device)
@@ -371,7 +384,9 @@ def blockmax_topk_impl(q_packed, min_lanes, q_scale, db_packed, db_valid, k, db_
     return fs, fi
 
 
-def blockmax_topk_packedq_impl(q_packed, q_lanes, db_packed, db_valid, k, nbits, db_unpacked=None, unpacked=False):
+def blockmax_topk_packedq_impl(
+    q_packed, q_lanes, db_packed, db_valid, k, nbits, db_unpacked=None, unpacked=False, phase1="popc"
+):
     # type: (...) -> tuple[torch.Tensor, torch.Tensor]
     """Query prep (common-prefix lanes and scale) + :func:`blockmax_topk_impl`
     for packed queries — the engine's per-partition search step.
@@ -383,5 +398,5 @@ def blockmax_topk_packedq_impl(q_packed, q_lanes, db_packed, db_valid, k, nbits,
         raise ValueError(f"db_packed {tuple(db_packed.shape)} is not a {nbits}-bit partition")
     min_lanes, q_scale = query_prefix(q_lanes, nbits)
     return blockmax_topk_impl(
-        q_packed, min_lanes, q_scale, db_packed, db_valid, k, db_unpacked=db_unpacked, unpacked=unpacked
+        q_packed, min_lanes, q_scale, db_packed, db_valid, k, db_unpacked=db_unpacked, unpacked=unpacked, phase1=phase1
     )

@@ -318,17 +318,84 @@ def test_unported_features_name_their_roadmap_item(tmp_path):
         DeviceNphdIndex(mesh=object(), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*knobs"):
         DeviceNphdIndex(scan_kernel="pallas", device="cpu")
-    (tmp_path / "state.json").write_text("{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*persistence"):
-        DeviceNphdIndex(tmp_path, device="cpu")
     idx = DeviceNphdIndex(tmp_path / "new", device="cpu")
-    for call in (idx.save, idx.compact):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md.*persistence"):
-            call()
     assert idx.control_hook is None
     idx.control_hook = None
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*parallel"):
         idx.control_hook = lambda *a: None
+    idx.close()
+
+
+@pytest.mark.parametrize("value", ["pallas", "xla", "wgmma", "", None])
+def test_scan_kernel_values_the_port_lacks_raise_with_their_roadmap_words(tmp_path, value):
+    """The JAX engine's ``"pallas"`` and "anything else = the XLA scan" have
+    no counterpart: the port has no Pallas and no XLA scan."""
+    with pytest.raises(NotImplementedError, match=r"scan_kernel=.*\('auto', 'mma', 'popc'\).*ROADMAP.md.*knobs"):
+        DeviceNphdIndex(tmp_path / "i", scan_kernel=value, device="cpu")
+    assert not (tmp_path / "i").exists()
+
+
+@pytest.mark.parametrize("scan_kernel", di.SCAN_KERNELS)
+def test_every_scan_kernel_gives_the_jax_engines_results(pair, data, scan_kernel):
+    """``scan_kernel`` chooses a kernel, never a result: on the CPU all three
+    run the plain version, return the same rows and scores in the same
+    order, and stand in parity with the JAX engine."""
+    jx, default = pair
+    keys, codes, lanes, removed = data
+    pt = DeviceNphdIndex.from_arrays(*[a[: jx._rows] for a in (jx._keys, jx._codes, jx._nlanes, jx._valid)],
+                                     scan_kernel=scan_kernel, device="cpu")
+    assert pt.scan_kernel == scan_kernel
+    rng = np.random.default_rng(19)
+    for nq in (1, 70):  # both sides of every "auto" threshold
+        rows = rng.integers(0, len(lanes), nq - nq // 4)
+        q_codes, q_lanes = _queries(codes, lanes, rows, rng, n_random=nq // 4)
+        bodies = _bodies(q_codes, q_lanes)
+        res = pt.search(bodies, K, return_rows=True)
+        for (k1, s1, r1), (k2, s2, r2) in zip(res, default.search(bodies, K, return_rows=True)):
+            np.testing.assert_array_equal(k1, k2)
+            np.testing.assert_array_equal(s1, s2)
+            np.testing.assert_array_equal(r1, r2)
+        _assert_parity(res, jx.search(bodies, K), q_codes, q_lanes, codes, lanes, jx._valid[: len(lanes)], K)
+
+
+def test_scan_kernel_reaches_phase_one(monkeypatch):
+    """The engine hands ``blockmax_topk_packedq_impl`` the forced kernel, or
+    under ``"auto"`` what ``auto_phase1`` names for the batch and the partition."""
+    seen = []
+    real = di.blockmax_topk_packedq_impl
+
+    def spy(*args, phase1):
+        seen.append((args[0].shape[0], args[5] // 32, phase1))
+        return real(*args, phase1=phase1)
+
+    monkeypatch.setattr(di, "blockmax_topk_packedq_impl", spy)
+    for scan_kernel in di.SCAN_KERNELS:
+        idx = DeviceNphdIndex(scan_kernel=scan_kernel, device="cpu")
+        idx.add(list(range(4)), [bytes(8), bytes(16), bytes(24), bytes(32)])
+        edges = sorted(set(di._AUTO_MMA_MIN_Q.values()))
+        for nq in (1, *(q - 1 for q in edges), *edges):
+            del seen[:]
+            idx.search([bytes(8)] * nq, 2)
+            want = [(nq, lanes, di.auto_phase1(nq, lanes) if scan_kernel == "auto" else scan_kernel) for lanes in (2, 4, 6, 8)]
+            assert seen == want
+            if scan_kernel == "auto" and nq in (1, edges[-1]):  # one kernel for every width at both ends
+                assert {p for _, _, p in seen} == {"popc" if nq == 1 else "mma"}
+
+
+@pytest.mark.parametrize("lanes", range(1, 9))
+def test_auto_phase1_is_a_table_of_batch_size_and_width(lanes):
+    """A pure function of (Q, lanes): ``"popc"`` below the width's threshold,
+    ``"mma"`` from it on, whatever the batch beyond; an odd lane count reads
+    the next even one's entry."""
+    threshold = di._AUTO_MMA_MIN_Q[lanes + lanes % 2]
+    assert di.auto_phase1(1, lanes) == "popc"
+    assert di.auto_phase1(threshold - 1, lanes) == "popc"
+    assert di.auto_phase1(threshold, lanes) == "mma"
+    for nq in (threshold + 1, 128, 512, 513, 1024, 10**6):
+        assert di.auto_phase1(nq, lanes) == "mma"
+    assert {di.auto_phase1(nq, lanes) for nq in range(1, 200)} == {"popc", "mma"}
+    assert sorted(di._AUTO_MMA_MIN_Q) == [2, 4, 6, 8] and all(1 < q <= 128 for q in di._AUTO_MMA_MIN_Q.values())
+    assert set(di.SCAN_KERNELS) - {"auto"} <= set(di.blockmax_topk_packedq_impl.__globals__["PHASE1"])
 
 
 def test_a_failed_sync_forces_a_full_rebuild(monkeypatch):

@@ -218,9 +218,10 @@ def test_index_search_on_card_matches_cpu_index(dev):
         idx.remove(list(range(0, n, 9)))
     q_rows = rng.integers(0, n, 40)
     bodies = [codes[i, : lanes[i]].astype(">u4").tobytes() for i in q_rows]
-    launches = hs.blockmax.launches, hs.gather_rescore.launches
+    launches = sum(fn.launches for fn in hs.PHASE1.values()), hs.gather_rescore.launches
     res_gpu = gpu.search(bodies, 10)
-    assert hs.blockmax.launches > launches[0] and hs.gather_rescore.launches > launches[1]
+    assert sum(fn.launches for fn in hs.PHASE1.values()) == launches[0] + 4
+    assert hs.gather_rescore.launches == launches[1] + 4
     res_cpu = cpu.search(bodies, 10)
     valid = np.ones(n, bool)
     valid[::9] = False
@@ -233,6 +234,110 @@ def test_index_search_on_card_matches_cpu_index(dev):
         rows = kg.view(">u8").ravel().astype(np.int64)
         np.testing.assert_allclose(ref[qi, rows], sg, rtol=0, atol=1e-6)
         np.testing.assert_allclose(np.sort(sg)[::-1], np.sort(ref[qi])[::-1][:10], rtol=0, atol=1e-6)
+
+
+def _engine_pair(rng, n, **kwargs):
+    """The same rows (every width, tombstones) in an index on the card and
+    in one on the CPU: (card, cpu, codes, lanes, valid)."""
+    codes, lanes = _random_codes(rng, n)
+    keys = np.arange(n, dtype=">u8").view(np.uint8).reshape(n, 8)
+    gpu = DeviceNphdIndex(device="cuda", **kwargs)
+    cpu = DeviceNphdIndex(device="cpu")
+    for idx in (gpu, cpu):
+        idx.add_packed(keys, codes, lanes)
+        idx.remove(list(range(0, n, 9)))
+    valid = np.ones(n, bool)
+    valid[::9] = False
+    return gpu, cpu, codes, lanes, valid
+
+
+@pytest.mark.parametrize("nq", (1, 63, 64, 65, 512, 600))
+@pytest.mark.parametrize("scan_kernel", ("auto", "mma", "popc"))
+def test_engine_search_under_every_scan_kernel_equals_the_cpu_plain_path(dev, scan_kernel, nq):
+    """Batch sizes around the 64-query tile and the 512-query chunk: the
+    engine on the card returns the CPU index's score multisets under every
+    ``scan_kernel``, every row carries its brute-force score, and phase 1
+    launched the kernel ``scan_kernel`` names (``"auto"``: ``auto_phase1``)."""
+    from iscc_search_tpu_torch.engine.device_index import auto_phase1
+
+    rng = np.random.default_rng(1000 + nq)
+    n = 40000
+    gpu, cpu, codes, lanes, valid = _engine_pair(rng, n, scan_kernel=scan_kernel)
+    q_rows = rng.integers(0, n, nq)
+    bodies = [codes[i, : lanes[i]].astype(">u4").tobytes() for i in q_rows]
+    for fn in hs.PHASE1.values():
+        fn.launches = 0
+    res_gpu = gpu.search(bodies, 10)
+    got = {name: fn.launches for name, fn in hs.PHASE1.items()}
+    want = dict.fromkeys(hs.PHASE1, 0)
+    for lv in (2, 4, 6, 8):
+        want[auto_phase1(nq, lv) if scan_kernel == "auto" else scan_kernel] += 1
+    assert got == want
+    res_cpu = cpu.search(bodies, 10)
+    sample = np.linspace(0, nq - 1, min(nq, 12)).astype(np.int64)
+    ref = nphd_scores(
+        torch.from_numpy(codes[q_rows[sample]].view(np.int32)), torch.from_numpy(lanes[q_rows[sample]]),
+        torch.from_numpy(codes.view(np.int32)), torch.from_numpy(lanes), torch.from_numpy(valid),
+    ).numpy()
+    for (kg, sg), (_, sc) in zip(res_gpu, res_cpu):
+        np.testing.assert_array_equal(np.sort(sg), np.sort(sc))
+        assert valid[kg.view(">u8").ravel().astype(np.int64)].all()
+    for j, qi in enumerate(sample):
+        kg, sg = res_gpu[qi]
+        np.testing.assert_allclose(ref[j, kg.view(">u8").ravel().astype(np.int64)], sg, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("scan_kernel", ("mma", "popc"))
+def test_engine_search_on_another_stream(dev, scan_kernel):
+    """A search made under ``torch.cuda.stream`` launches on that stream and
+    gets the tensor-core kernel's large dynamic shared memory there too
+    (256-bit rows at Q=512: over 200 KB); same results as on the default
+    stream."""
+    rng = np.random.default_rng(77)
+    gpu, _, codes, lanes, _ = _engine_pair(rng, 20000, scan_kernel=scan_kernel)
+    q_rows = rng.integers(0, 20000, 512)
+    bodies = [codes[i, : lanes[i]].astype(">u4").tobytes() for i in q_rows]
+    want = gpu.search(bodies, 10)
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        got = gpu.search(bodies, 10)
+    for (kw, sw), (kg, sg) in zip(want, got):
+        np.testing.assert_array_equal(kw, kg)
+        np.testing.assert_array_equal(sw, sg)
+
+
+def test_a_refused_phase1_launch_raises(dev, monkeypatch):
+    """No way round a failed launch: the wrapper raises, the engine search
+    with it, and nothing is counted."""
+    gpu, _, codes, lanes, _ = _engine_pair(np.random.default_rng(5), 2000, scan_kernel="mma")
+    gpu.search([bytes(8)], 1)
+    monkeypatch.setattr(hs, "_entry", lambda name: (lambda *args: 9))  # cudaErrorInvalidConfiguration
+    before = {name: fn.launches for name, fn in hs.PHASE1.items()}
+    with pytest.raises(RuntimeError, match="blockmax_mma_packed kernel launch failed: cudaError 9"):
+        gpu.search([bytes(8)], 1)
+    assert {name: fn.launches for name, fn in hs.PHASE1.items()} == before
+
+
+def test_index_saved_on_the_card_reopens_on_the_card(dev, tmp_path):
+    """save, close, open anew on the card: the same keys and scores."""
+    rng = np.random.default_rng(13)
+    n = 30000
+    codes, lanes = _random_codes(rng, n)
+    keys = np.arange(1, n + 1, dtype=">u8").view(np.uint8).reshape(n, 8)
+    idx = DeviceNphdIndex(tmp_path / "i", shard_size=45 * 7000, device="cuda")
+    idx.add_packed(keys, codes, lanes)
+    idx.remove(list(range(1, n, 11)))
+    bodies = [codes[i, : lanes[i]].astype(">u4").tobytes() for i in rng.integers(0, n, 100)]
+    want = idx.search(bodies, 10)
+    idx.save(wait=True)
+    assert idx.shard_count == 5
+    idx.close()
+    again = DeviceNphdIndex(tmp_path / "i", device="cuda")
+    assert len(again) == len(idx) and again._partitions is None
+    for (kw, sw), (kg, sg) in zip(want, again.search(bodies, 10)):
+        np.testing.assert_array_equal(kw, kg)
+        np.testing.assert_array_equal(sw, sg)
+    again.close()
 
 
 def _experiment_case(dev, n, seed, nq=77):

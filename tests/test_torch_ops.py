@@ -287,6 +287,42 @@ def test_blockmax_topk_rejects_a_partition_of_another_width():
         hs.blockmax_topk_packedq_impl(_t(q_codes), _t(q_lanes), _t(packed), _t(valid), 10, 256)
 
 
+@pytest.mark.parametrize("phase1", ["popc", "mma", "mma_twin"])
+@pytest.mark.parametrize("nbits", WIDTHS)
+def test_every_phase1_formulation_gives_the_same_topk_on_the_cpu(nbits, phase1):
+    """On the CPU each formulation takes its plain version; all return what
+    the default (``"popc"``) returns, rows included."""
+    packed, valid, q_codes, q_lanes = _partition(nbits, n=2048, n_live=2000)
+    args = (_t(q_codes), _t(q_lanes), _t(packed), _t(valid), 10, nbits)
+    twin = hs.build_unpacked_db(_t(packed), nbits)
+    want_s, want_i = hs.blockmax_topk_packedq_impl(*args)
+    got_s, got_i = hs.blockmax_topk_packedq_impl(*args, db_unpacked=twin, phase1=phase1)
+    assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
+    min_lanes, q_scale = pm1_scan.query_prefix(_t(q_lanes), nbits)
+    got_s, got_i = hs.blockmax_topk_impl(_t(q_codes), min_lanes, q_scale, _t(packed), _t(valid), 10, twin, phase1=phase1)
+    assert torch.equal(got_s, want_s) and torch.equal(got_i, want_i)
+
+
+def test_phase1_names_the_three_wrappers():
+    assert hs.PHASE1 == {"popc": hs.blockmax, "mma": hs.blockmax_mma_packed, "mma_twin": hs.blockmax_mma_unpacked}
+    packed, valid, q_codes, q_lanes = _partition(128, n=1024)
+    args = (_t(q_codes), _t(q_lanes), _t(packed), _t(valid), 10, 128)
+    with pytest.raises(ValueError, match=r"phase1 must be one of \['mma', 'mma_twin', 'popc'\], got 'pallas'"):
+        hs.blockmax_topk_packedq_impl(*args, phase1="pallas")
+    with pytest.raises(ValueError, match="requires db_unpacked"):
+        hs.blockmax_topk_packedq_impl(*args, phase1="mma_twin")
+    # unpacked=True is the JAX contract's name for "mma_twin", whatever phase1 says.
+    twin = hs.build_unpacked_db(_t(packed), 128)
+    calls = []
+    real = hs.PHASE1["mma_twin"]
+    hs.PHASE1["mma_twin"] = lambda *a: (calls.append(a[3].dtype), real(*a))[1]
+    try:
+        hs.blockmax_topk_packedq_impl(*args, db_unpacked=twin, unpacked=True, phase1="popc")
+    finally:
+        hs.PHASE1["mma_twin"] = real
+    assert calls == [torch.int8]
+
+
 # ------------------------------------------------------ wrapper contracts
 
 
@@ -541,3 +577,22 @@ def test_chip_smoke_bounds_each_variant_by_its_own_work():
     assert mod.variant_bound("bf16_nopen", n, nq)[0] < bf16[0]
     for name in ("dotonly_nodma", "dotonly_bf16_nodma", "consume_nodma", "nodma_full"):
         assert mod.variant_bound(name, n, nq) == (pytest.approx(ops_ms), "operations")
+
+
+def test_chip_smoke_measures_both_sides_of_every_auto_threshold():
+    """The [route] grid holds each threshold of the engine's ``"auto"``
+    table and a batch size below it, so the smoke run times both kernels on
+    both sides of every switch."""
+    from iscc_search_tpu_torch.engine import device_index as di
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    assert list(mod.ROUTE_QS) == sorted(set(mod.ROUTE_QS)) and mod.ROUTE_QS[0] == 1 and mod.ROUTE_QS[-1] >= 1024
+    assert {1, 2, 4, 8, 16, 32, 64, 96, 128, 192, 256, 512, 1024} <= set(mod.ROUTE_QS)
+    for lanes in mod.LANE_CHOICES:
+        threshold = di._AUTO_MMA_MIN_Q[lanes]
+        assert threshold in mod.ROUTE_QS and mod.ROUTE_QS.index(threshold) > 0
+        below = mod.ROUTE_QS[mod.ROUTE_QS.index(threshold) - 1]
+        assert di.auto_phase1(below, lanes) == "popc" and di.auto_phase1(threshold, lanes) == "mma"
+    assert mod.N_PERSIST == 1_048_576 and mod.N_PERSIST // (mod.PERSIST_SHARD_BYTES // 45) >= 4
