@@ -59,7 +59,7 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    warm-search seconds and the directory's bytes are printed. Then the
    config-3 index of phases 4-6 is saved, closed and opened anew, and must
    answer as before;
-8. experiments — the phase-1 experiment entry points of
+8. experiments (run last) — the phase-1 experiment entry points of
    ``iscc_search_tpu_torch.experiments`` (TPU kernels 8-11): each kernel
    against its plain version (``torch.equal``) on edge cases (Q=77,
    192-bit prefixes, tombstones, a dead block; kernels 10 and 11 also
@@ -67,6 +67,44 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``main()`` at the script's own size with the counters set to 0 just
    before and read just after, then each kernel against its plain version
    at that size, with the plain version's time.
+
+9. simprint — BASELINE config 4 at the engine level: 1,000,000 assets x
+   100 random 128-bit chunk simprints (100,000,000 rows, keys shaped as
+   ``benchmarks/config4_100m.py`` builds them) through
+   ``SimprintEngine.add_packed``, 1/64 of the rows removed, 32 planted
+   query assets (a stored asset's chunks with 0-12 bits flipped each);
+   ``search_raw_many`` at 10 and 100 chunks per query asset in batches of
+   1, 8 and 32 (limit 10, threshold 0.75, a constant document frequency),
+   median warm ms and query assets per second, the device split, memory and
+   launches. Every matched chunk's score equals the host's XOR + popcount,
+   every asset score its recomputation from the chunks, every planted asset
+   is at rank 0 with all its live chunks, no removed chunk comes back. Then
+   ``blockmax`` (the narrowest batch), ``blockmax_mma_packed`` (a 512-query
+   sweep) and ``gather_rescore`` (the count's top blocks) against their
+   plain versions on the 100,000,000-row partition, with their times;
+10. product — ``TpuIndex`` on the card: 20,000 assets (units of 64-256 bits,
+   INSTANCE, 100 x 128-bit simprints, metadata; config 4 cut to 2% of its
+   assets) through ``add_assets`` in batches of 1,000, 1% re-added with
+   changed units (and half of those with changed simprints), then
+   ``search_assets`` by units, simprints and both, limit 10 and 100, scan
+   and exact, and by ISCC-ID, each against brute force (NPHD per type, the
+   threshold and confidence weighting, INSTANCE prefixes; the simprint
+   checks of phase 9 with the store's document frequencies; and every chunk
+   sweep's candidates, 400 or 4,000 per chunk query, against brute-force
+   ``hamming_scores`` over all stored chunks); 8 concurrent clients through
+   the batcher (answers equal the sequential ones); ``blockmax_mma_packed``
+   (a request's 100 chunk queries) and ``gather_rescore`` (one 64-query
+   slice of phases 2-3 at the 4,096 candidate blocks of count 4,000)
+   against their plain versions on the product's chunk partition;
+   ``flush``/``close``/reopen (identical answers); a 1,000-asset copy
+   opened with ``device="cpu"`` answering ``model_dump()``-identically.
+
+Phases 9 and 10 run after phase 7 and set the launch counts to 0 just before
+they drive their path and read them just after (phase 10's kernel-against-
+plain launches are not counted); the JSON summary's ``launches`` of the path
+kernels is the sum over the three search paths, ``launches_by_path`` splits
+it, and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
+10's kernel-against-plain numbers.
 
 Each kernel's line in the JSON summary carries ``bound_ms``, the least time
 the card could take for the same work: the larger of its bytes (each input
@@ -93,30 +131,41 @@ Usage: ``python3 chip_smoke.py [--seed N] [--profile]``
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
+import itertools
 import json
+import shutil
 import statistics
 import subprocess
 import tempfile
+import threading
 import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from iscc_search_tpu_torch import codec as ic
+from iscc_search_tpu_torch import schema
 from iscc_search_tpu_torch.engine import DeviceNphdIndex
+from iscc_search_tpu_torch.engine import simprint_ops
+from iscc_search_tpu_torch.engine.simprint import SimprintEngine
 from iscc_search_tpu_torch.engine.device_index import _cap_rows, _pow2ceil, auto_phase1
 from iscc_search_tpu_torch.experiments import exp_bitplane_int8 as ex10
 from iscc_search_tpu_torch.experiments import time_ms
 from iscc_search_tpu_torch.experiments import exp_bitplane_u8 as ex11
 from iscc_search_tpu_torch.experiments import exp_int4 as ex9
 from iscc_search_tpu_torch.experiments import exp_kernels as ex8
+from iscc_search_tpu_torch.indexes.tpu import TpuIndex
+from iscc_search_tpu_torch.models import IsccID, IsccUnit
 from iscc_search_tpu_torch.ops import _build, bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
 from iscc_search_tpu_torch.ops import wgmma_layout
-from iscc_search_tpu_torch.ops.nphd import nphd_scores
+from iscc_search_tpu_torch.ops.nphd import hamming_scores, nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
-from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix
+from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix, topk_blocks_hier
+from iscc_search_tpu_torch.server import metrics
 
 N_ROWS = 10_485_760  # bench.py headline size
 LANE_CHOICES = (2, 4, 6, 8)  # 64/128/192/256-bit
@@ -181,6 +230,24 @@ WRAPPERS = {
 N8, Q8 = 10_485_760, 256
 N9, N9_LARGE, Q9 = 1_048_576, 10_485_760, 8
 N10, Q10 = 8_388_608, 256
+# BASELINE config 4 (BASELINE.md, "SIMPRINT granular: 1M assets x ~100 chunk
+# simprints") and the traffic of benchmarks/config4_100m.py.
+C4_ASSETS, C4_CHUNKS = 1_000_000, 100
+C4_SLICE_ASSETS = 40_000  # assets per add_packed call (4M rows): bounds the temporaries
+C4_PLANTED = 32  # query assets, each a near copy of one stored asset
+C4_MAX_FLIPS = 12  # bits flipped per planted chunk: 0..12 of 128
+C4_WIDTHS = (10, 100)  # chunks per query asset
+C4_BATCHES = (1, 8, 32)  # query assets per search_raw_many call
+C4_TRIALS = 5  # warm calls per (width, batch), after one more
+C4_LIMIT, C4_THRESHOLD = 10, 0.75
+# The product cell: config 4 cut to 2% of its assets (the store ingest is per-asset Python).
+PRODUCT_ASSETS, PRODUCT_BATCH, PRODUCT_SIMPRINTS = 20_000, 1000, 100
+PRODUCT_SP = "CONTENT_TEXT_V0"
+PRODUCT_CPU_ASSETS = 1000  # the copy opened with device="cpu"
+PRODUCT_REPS = 7  # single requests per query shape
+PRODUCT_CLIENTS, PRODUCT_PER_CLIENT = 8, 8
+PRODUCT_T0 = 1_700_000_000_000_000  # ISCC-ID timestamps (microseconds) of the product assets
+PATH_KERNELS = ("blockmax", "blockmax_mma_packed", "gather_rescore")  # what a search launches
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_S = 1979e12
 POPC_PER_CLOCK_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
@@ -794,6 +861,773 @@ def phase_persist(rng, dev, idx3, queries3, tmp):
     again.close()
 
 
+# ------------------------------------------------- config 4: the simprint path
+
+
+def sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def reset_launches():
+    for fn in (*hs.PHASE1.values(), hs.gather_rescore):
+        fn.launches = 0
+
+
+def read_launches():
+    return {name: getattr(hs, name).launches for name in PATH_KERNELS}
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block are not the path's: the counts are put back
+    as they were (kernel-against-plain checks made within a path's run)."""
+    saved = {fn: fn.launches for fn in (*hs.PHASE1.values(), hs.gather_rescore)}
+    try:
+        yield
+    finally:
+        for fn, n in saved.items():
+            fn.launches = n
+
+
+def device_memory(dev):
+    if dev.type != "cuda":
+        return "not measured (CPU)"
+    return (f"allocated {torch.cuda.memory_allocated(dev) / 2**30:.3f} GiB, "
+            f"peak {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+
+
+def profile_device(tag, fn, dev, reps=1):
+    """Device time by kernel and the device's busy share of the window of
+    ``reps`` calls of ``fn`` (``torch.profiler``, kernel events only). On
+    the CPU the calls run unprofiled: there is no device time."""
+    if dev.type != "cuda":
+        for _ in range(reps):
+            fn()
+        return
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize(dev)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    by_kernel = {}
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA:
+            us, n = by_kernel.get(evt.name, (0.0, 0))
+            by_kernel[evt.name] = (us + evt.time_range.elapsed_us(), n + 1)
+    busy_ms = sum(us for us, _ in by_kernel.values()) / 1e3
+    log(f"{tag} {reps} call(s) under the profiler: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+        f"({100 * busy_ms / wall_ms:.1f}% of the window; idle {100 - 100 * busy_ms / wall_ms:.1f}%)")
+    for name, (us, n) in sorted(by_kernel.items(), key=lambda kv: -kv[1][0])[:10]:
+        log(f"{tag} {us / 1e3 / reps:9.4f} ms/call  x{n // reps:<4d} {name[:90]}")
+
+
+def host_split(tag, fn, parts, reps=1):
+    """Where the calling thread's time goes in ``reps`` calls of ``fn``:
+    ``cProfile``'s cumulative seconds of the functions each part names
+    (``"file.py:function"``), and the top functions by own time. cProfile
+    slows every Python call, so read the shares, not the seconds. Time the
+    thread spends waiting (on a batcher's sweep, a device sync) counts where
+    it waits."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    t0 = time.perf_counter()
+    prof.enable()
+    for _ in range(reps):
+        fn()
+    prof.disable()
+    wall = (time.perf_counter() - t0) / reps
+    stats = pstats.Stats(prof).stats  # (file, line, name) -> (calls, ..., own s, cumulative s, callers)
+
+    def cumulative(names):
+        return sum(v[3] for (path, _, func), v in stats.items()
+                   if any(path.endswith(n.split(":")[0]) and func == n.split(":")[1] for n in names)) / reps
+
+    log(f"{tag} {reps} call(s) under cProfile, {wall * 1e3:.3f} ms per call (profiled): "
+        + "; ".join(f"{label} {100 * cumulative(names) / wall:.1f}%" for label, names in parts.items()))
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:8]
+    log(f"{tag} own time: " + ", ".join(f"{func} ({Path(path).name}) {100 * v[2] / reps / wall:.1f}%"
+                                        for (path, _, func), v in top))
+
+
+def composite_keys(assets, offsets, size=100):
+    """(n, 16) uint8 simprint keys as the simprint engine stores them: the
+    asset's 8-byte body, then the chunk's offset and size, each big-endian
+    (the shape ``benchmarks/config4_100m.py`` builds)."""
+    keys = np.empty((len(assets), 16), np.uint8)
+    keys[:, :8] = np.asarray(assets, np.uint64).astype(">u8").view(np.uint8).reshape(-1, 8)
+    keys[:, 8:12] = np.asarray(offsets, np.uint32).astype(">u4").view(np.uint8).reshape(-1, 4)
+    keys[:, 12:16] = np.full(len(assets), size, ">u4").view(np.uint8).reshape(-1, 4)
+    return keys
+
+
+def hamming_score(a, b):
+    """1 - popcount(a ^ b) / bits of two simprints (bytes), on the host."""
+    x = np.frombuffer(a, np.uint8) ^ np.frombuffer(b, np.uint8)
+    return 1.0 - int(np.unpackbits(x).sum()) / (8 * len(a))
+
+
+def flip_rows(rng, vecs, counts):
+    """``vecs`` ((n, nbytes) uint8) with ``counts[i]`` distinct bits of row
+    ``i`` flipped (bit p is bit p % 8 of byte p // 8)."""
+    n, nbytes = vecs.shape
+    rank = np.argsort(rng.random((n, nbytes * 8)), axis=1).argsort(axis=1)
+    return vecs ^ np.packbits(rank < np.asarray(counts)[:, None], axis=1, bitorder="little")
+
+
+def check_asset_match(label, match, queries, idf_of, query_freq, stored=None):
+    """The checks of one asset's simprint match (``SimprintMatchRaw`` or the
+    wire ``Types`` with base64 chunks decoded by the caller into
+    ``(query, match, score, offset, freq)``): every chunk's score equals the
+    host's XOR + popcount, the match is the stored vector where ``stored``
+    names it, and the asset score is recomputed from the chunks, term by
+    term in the engine's order (matched chunks, then the unmatched
+    queries)."""
+    chunks, score = match
+    matched = set()
+    weighted = total = 0.0
+    for query, found, sim, offset, freq in chunks:
+        if sim != hamming_score(query, found):
+            raise AssertionError(f"{label}: chunk at offset {offset} scores {sim}, XOR + popcount gives {hamming_score(query, found)}")
+        if stored is not None and found != stored(offset):
+            raise AssertionError(f"{label}: chunk at offset {offset} matched bytes that are not the stored vector")
+        matched.add(query)
+        idf = idf_of(freq)
+        total += idf
+        weighted += idf * sim
+    for query in queries:
+        if query not in matched:
+            total += idf_of(query_freq(query))
+    if score != (weighted / total if total > 0 else 0.0):
+        raise AssertionError(f"{label}: asset score {score} != {weighted / total} recomputed from its chunks")
+
+
+def phase_simprint(rng, dev, tmp, n_assets=C4_ASSETS, chunks=C4_CHUNKS, trials=C4_TRIALS, widths=C4_WIDTHS,
+                   batches=C4_BATCHES):
+    """BASELINE config 4 at the engine level: 100-chunk assets of random
+    128-bit simprints through ``SimprintEngine.add_packed``, 1/64 of the rows
+    removed, then ``search_raw_many`` for planted near-duplicates, checked
+    chunk by chunk and asset by asset, with the kernels held against their
+    plain versions at the path's shapes."""
+    n = n_assets * chunks
+    cut = "" if n_assets == C4_ASSETS else f" (cut from {C4_ASSETS} assets)"
+    log(f"[simprint] BASELINE config 4, engine level: {n_assets} assets x {chunks} random 128-bit chunk simprints "
+        f"= {n} rows{cut}, 1/{TOMBSTONE_EVERY} removed, {C4_PLANTED} planted query assets")
+    reset_launches()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    engine = SimprintEngine(Path(tmp) / "simprint", ndim=128, device=dev)
+    engine._index.save_enabled = False  # the engine-level cell writes nothing; [product] covers persistence
+    targets = np.linspace(0, n_assets - 1, C4_PLANTED).astype(np.int64)
+    stored = {}  # target asset -> (chunks, 16) uint8 vectors
+    t0 = time.perf_counter()
+    for a0 in range(0, n_assets, C4_SLICE_ASSETS):
+        a1 = min(a0 + C4_SLICE_ASSETS, n_assets)
+        assets = np.repeat(np.arange(a0, a1), chunks)
+        keys = composite_keys(assets, np.tile(np.arange(chunks) * 100, a1 - a0))
+        vecs = rng.integers(0, 256, ((a1 - a0) * chunks, 16), dtype=np.uint8)
+        for t in targets[(targets >= a0) & (targets < a1)]:
+            stored[int(t)] = vecs[(t - a0) * chunks : (t - a0 + 1) * chunks].copy()
+        engine.add_packed(keys, vecs)
+        del keys, vecs, assets
+    add_s = time.perf_counter() - t0
+    removed = np.arange(0, n, TOMBSTONE_EVERY)
+    t0 = time.perf_counter()
+    buf = composite_keys(removed // chunks, removed % chunks * 100).tobytes()
+    engine.remove([buf[i : i + 16] for i in range(0, len(buf), 16)])
+    remove_s = time.perf_counter() - t0
+    if engine.size != n - len(removed):
+        raise AssertionError(f"{engine.size} live rows after removing {len(removed)} of {n}")
+    log(f"[simprint] add_packed of {n} rows in slices of {C4_SLICE_ASSETS * chunks}: {add_s:.3f} s "
+        f"({n / add_s:.0f} rows/s); remove of {len(removed)} keys: {remove_s:.3f} s")
+
+    def live(asset, c):
+        return (asset * chunks + c) % TOMBSTONE_EVERY != 0
+
+    flips = rng.integers(0, C4_MAX_FLIPS + 1, (C4_PLANTED, chunks))
+    planted = [[row.tobytes() for row in flip_rows(rng, stored[int(t)], flips[j])] for j, t in enumerate(targets)]
+    idf1 = simprint_ops.calculate_idf(1, n_assets)
+
+    def check(label, results, width):
+        for j, res in enumerate(results):
+            t = int(targets[j])
+            want = sum(live(t, c) for c in range(width))
+            body = t.to_bytes(8, "big")
+            if not res or res[0].iscc_id_body != body or res[0].matches != want or res[0].queried != width:
+                top = (res[0].iscc_id_body.hex(), res[0].matches) if res else None
+                raise AssertionError(f"{label} query asset {j}: rank 0 is {top}, expected asset {t} with {want} matched chunks")
+            for r in res:
+                asset = int.from_bytes(r.iscc_id_body, "big")
+                for ch in r.chunks:
+                    if not live(asset, ch.offset // 100):
+                        raise AssertionError(f"{label}: a removed chunk came back (asset {asset}, offset {ch.offset})")
+                check_asset_match(
+                    f"{label} query asset {j}", ([(ch.query, ch.match, ch.score, ch.offset, ch.freq) for ch in r.chunks], r.score),
+                    planted[j][:width], lambda freq: idf1, lambda q: 1,
+                    (lambda off, t=t: stored[t][off // 100].tobytes()) if asset == t else None,
+                )
+
+    kwargs = dict(limit=C4_LIMIT, threshold=C4_THRESHOLD, detailed=True, doc_freq_fn=lambda sp: 1, total_assets=n_assets)
+    t0 = time.perf_counter()
+    engine.search_raw_many([planted[0][: widths[0]]], **kwargs)
+    sync(dev)
+    log(f"[simprint] first search (builds and uploads the partition): {time.perf_counter() - t0:.3f} s; "
+        f"device memory {device_memory(dev)}")
+    sweeps = []
+    search = engine._index.search
+
+    def timed_search(bodies, count, **kw):
+        t1 = time.perf_counter()
+        out = search(bodies, count, **kw)
+        sweeps.append(time.perf_counter() - t1)
+        return out
+
+    engine._index.search = timed_search
+    try:
+        for width in widths:
+            for b in batches:
+                qsets = [planted[j][:width] for j in range(b)]
+                times, sweep_s = [], []
+                for _ in range(trials + 1):
+                    sweeps.clear()
+                    t0 = time.perf_counter()
+                    results = engine.search_raw_many(qsets, **kwargs)
+                    times.append(time.perf_counter() - t0)
+                    sweep_s.append(sum(sweeps))
+                check(f"[simprint] {width} chunks x {b}", results, width)
+                med = statistics.median(times[1:])
+                log(f"[simprint] {b} query asset(s) x {width} chunks ({b * width} chunk queries, count "
+                    f"{C4_LIMIT * engine.oversampling_factor}): median {med * 1e3:.3f} ms of {trials} warm "
+                    f"(min {min(times[1:]) * 1e3:.3f}, max {max(times[1:]) * 1e3:.3f}), {b / med:.2f} query assets/s; "
+                    f"device sweeps (launch, device, readback, host merge) {statistics.median(sweep_s[1:]) * 1e3:.3f} ms, "
+                    f"per-asset scoring {(med - statistics.median(sweep_s[1:])) * 1e3:.3f} ms; checks passed")
+        widest = [planted[j][: widths[-1]] for j in range(batches[-1])]
+        profile_device(f"[simprint profile {batches[-1]} x {widths[-1]}]", lambda: engine.search_raw_many(widest, **kwargs), dev)
+        host_split(f"[simprint host {batches[-1]} x {widths[-1]}]", lambda: engine.search_raw_many(widest, **kwargs), {
+            "device sweeps (launch, device, readback, host merge)": ["device_index.py:search"],
+            "host merge": ["device_index.py:_collect_results"],
+            "per-asset scoring": ["simprint.py:_score_query_asset"],
+            "IDF": ["simprint_ops.py:calculate_idf"],
+            "stored vectors (body_at)": ["device_index.py:body_at"],
+        })
+    finally:
+        del engine._index.search
+    launches = read_launches()
+    log(f"[simprint] kernel launches of the path (first search and every timed search): {launches}; "
+        f"device memory {device_memory(dev)}")
+    if dev.type == "cuda":
+        for name in PATH_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"the simprint path never launched {name}")
+    log(f"[simprint] every matched chunk's score == XOR + popcount on the host, every planted asset at rank 0 with "
+        f"all its live chunks matched, every asset score == its recomputation from the chunks, no removed chunk returned")
+    stats = simprint_kernel_stats(dev, engine, planted, widths, batches)
+    engine.close()
+    return launches, stats
+
+
+def simprint_kernel_stats(dev, engine, planted, widths, batches):
+    """Each kernel of the simprint path against its plain version at the
+    path's shapes: the 128-bit partition, Q = the narrowest batch (the popc
+    kernel's traffic) and Q = 512 (one full sweep, the tensor cores'), and
+    ``gather_rescore`` of the count's top blocks."""
+    part = engine._index._sync_device()[4]
+    flat = [q for j in range(batches[-1]) for q in planted[j][: widths[-1]]][: SimprintEngine.max_sweep_queries]
+    kk = candidate_blocks(C4_LIMIT * engine.oversampling_factor, part.cap)
+    return path_kernel_stats("[simprint]", dev, part, flat, {
+        "blockmax": (widths[0], None), "blockmax_mma_packed": (len(flat), None), "gather_rescore": (len(flat), kk),
+    })
+
+
+def candidate_blocks(count, cap):
+    """kk, the candidate blocks per query of a search for ``count`` rows in a
+    partition of ``cap`` rows: k bucketed as the engine buckets it, at most
+    the partition's blocks (``blockmax_topk_impl``)."""
+    return min(_pow2ceil(count), cap // hs.BLOCK)
+
+
+def path_kernel_stats(label, dev, part, flat, shapes):
+    """Kernels of a search path against their plain versions (``torch.equal``)
+    on the path's own partition ``part``, with their times. ``shapes`` maps a
+    kernel name to (Q, kk): the first Q of the chunk queries ``flat``, and
+    for ``gather_rescore`` the kk candidate blocks per query (the top-kk
+    blocks of the tensor-core phase 1)."""
+    cap = part.cap
+    nbits = part.packed_dev.shape[1] * 32
+    q_codes, q_lanes = pack_codes(flat)
+    q_all = torch.from_numpy(q_codes.view(np.int32)).to(dev)
+    l_all = torch.from_numpy(q_lanes).to(dev)
+    stats = {}
+    for name, (nq, kk) in shapes.items():
+        q_packed = q_all[:nq].contiguous()
+        min_lanes, q_scale = query_prefix(l_all[:nq].contiguous(), nbits)
+        args = (q_packed, min_lanes, q_scale, part.packed_dev, part.valid_dev)
+        if name == "gather_rescore":
+            block_ids = topk_blocks_hier(hs.blockmax_mma_packed(*args), kk).to(torch.int32)
+            run = functools.partial(hs.gather_rescore, q_packed, min_lanes, block_ids, part.packed_dev)
+            plain = functools.partial(hs.gather_rescore_plain, q_packed, min_lanes, block_ids, part.packed_dev)
+            blocks = int(torch.unique(block_ids).numel())
+            row_bytes = nbits // 8
+            nbytes = blocks * 128 * row_bytes + block_ids.numel() * 4 + nq * 28 + block_ids.numel() * 512
+            work = bound(nbytes, block_ids.numel() * 128 * (nbits // 32), popc_per_s() if dev.type == "cuda" else 1e12)
+        else:
+            run = functools.partial(getattr(hs, name), *args)
+            plain = functools.partial(hs.blockmax_plain, *args)
+            work = bound(cap * (nbits // 8) + cap + nq * 28 + nq * (cap // 128) * 4, nq * cap * 2 * nbits, INT8_OPS_S)
+        got, want = run(), plain()
+        sync(dev)
+        if not torch.equal(got, want):
+            raise AssertionError(f"{label} {name} at Q={nq}: kernel != plain")
+        err = float((got - want).abs().max())
+        del got, want
+        ms = time_ms(run, dev, 10 if dev.type == "cuda" else 1, graph=name == "gather_rescore")
+        plain_ms = time_ms(plain, dev, 1)
+        stats[name] = {"q": nq, "cap": cap, "ms": ms, "plain_ms": plain_ms, "bound_ms": work[0], "bound_by": work[1],
+                       "max_abs_err": err}
+        if kk is not None:
+            stats[name]["kk"] = kk
+        log(f"{label} {name} at the path's shape (cap {cap}, Q={nq}{f', kk={kk}' if kk is not None else ''}): "
+            f"kernel == plain; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {work[0]:.4f} ms by {work[1]})")
+    return stats
+
+
+# ------------------------------------------- the asset-level entry point
+
+
+def _unit(mtype, stype, body):
+    header = ic.encode_header(mtype, stype, ic.VS.V0, ic.encode_length(mtype, len(body) * 8))
+    return "ISCC:" + ic.encode_base32(header + body)
+
+
+UNIT_KINDS = ((ic.MT.META, ic.ST.NONE), (ic.MT.SEMANTIC, ic.ST_CC.TEXT), (ic.MT.CONTENT, ic.ST_CC.IMAGE),
+              (ic.MT.DATA, ic.ST.NONE))
+
+
+def product_assets(rng, n, n_sp=PRODUCT_SIMPRINTS):
+    """(wire dicts, truth) of ``n`` assets: META, SEMANTIC, CONTENT and DATA
+    units of 64-256 bits, an INSTANCE unit, ``n_sp`` 128-bit simprints and
+    a little metadata. Asset ``i`` with ``i % 10 == 1`` is a near copy of
+    asset ``i - 1``: units with 1-6 bits flipped, simprints with 0-12 bits
+    flipped, and an INSTANCE that is a 64-bit prefix of its original's.
+    ``truth[i]`` holds the bodies: ``units`` (four), ``instance``, ``sp``
+    ((n_sp, 16) uint8)."""
+    truth, assets = [], []
+    for i in range(n):
+        if i % 10 == 1:
+            src = truth[i - 1]
+            units = [flip_rows(rng, np.frombuffer(b, np.uint8)[None], [1 + i % 6])[0].tobytes() for b in src["units"]]
+            instance = src["instance"][:8]
+            sp = flip_rows(rng, src["sp"], rng.integers(0, 13, n_sp))
+        else:
+            units = [rng.bytes(int(w)) for w in rng.choice([8, 16, 24, 32], len(UNIT_KINDS))]
+            instance = rng.bytes(int(rng.choice([8, 16, 32])))
+            sp = rng.integers(0, 256, (n_sp, 16), dtype=np.uint8)
+        truth.append({"units": units, "instance": instance, "sp": sp})
+        assets.append(product_wire(i, truth[i]))
+    return assets, truth
+
+
+def product_iscc_id(i):
+    return ic.gen_iscc_id_v1(timestamp_us=PRODUCT_T0 + i, server_id=i % 4096)["iscc"]
+
+
+def product_wire(i, t):
+    return {
+        "iscc_id": product_iscc_id(i),
+        "units": [_unit(m, s, b) for (m, s), b in zip(UNIT_KINDS, t["units"])]
+        + [_unit(ic.MT.INSTANCE, ic.ST.NONE, t["instance"])],
+        "simprints": {PRODUCT_SP: [{"simprint": ic.encode_base64(v.tobytes()), "offset": c * 100, "size": 100}
+                                   for c, v in enumerate(t["sp"])]},
+        "metadata": {"name": f"asset {i}", "source": f"https://example.com/{i}"},
+    }
+
+
+class ProductOracle:
+    """Brute force of ``search_assets`` over the host truth: NPHD per unit
+    type on the card (``nphd_scores`` over every stored body), INSTANCE
+    prefixes both ways, the threshold and confidence weighting of
+    ``indexes/tpu/index.py``, and the simprint checks of ``[simprint]``."""
+
+    def __init__(self, dev, truth, index):
+        self.dev, self.truth, self.index = dev, truth, index
+        self.ids = [product_iscc_id(i) for i in range(len(truth))]
+        self.asset_of = {iscc_id: i for i, iscc_id in enumerate(self.ids)}
+        self.types = [IsccUnit(_unit(m, s, b"\0" * 8)).unit_type for m, s in UNIT_KINDS]
+        self.by_type = []
+        for k in range(len(UNIT_KINDS)):
+            codes, lanes = pack_codes([t["units"][k] for t in truth])
+            self.by_type.append((torch.from_numpy(codes.view(np.int32)).to(dev), torch.from_numpy(lanes).to(dev)))
+        # Every stored chunk simprint, row a * n_sp + c = asset a's chunk c,
+        # packed big-endian as the engine packs them; the assets' ISCC-ID
+        # bodies sorted, to map a composite key back to its asset.
+        sp = np.stack([t["sp"] for t in truth])
+        self.n_sp = sp.shape[1]
+        self.sp_rows = torch.from_numpy(sp.reshape(-1, 4, 4).view(">u4")[..., 0].astype(np.uint32).view(np.int32)).to(dev)
+        bodies = np.array([int.from_bytes(IsccID(i).body, "big") for i in self.ids], np.uint64)
+        self.body_order = np.argsort(bodies)
+        self.sorted_bodies = bodies[self.body_order]
+
+    def _found(self, k, body, limit):
+        """{asset: score} of one type's top ``limit``: ``definite`` above the
+        cut, ``maybe`` tied at it (which of those the engine keeps is a tie
+        break), as float32 scores."""
+        codes, lanes = self.by_type[k]
+        q_codes, q_lanes = pack_codes([body])
+        s = nphd_scores(torch.from_numpy(q_codes.view(np.int32)).to(self.dev), torch.from_numpy(q_lanes).to(self.dev),
+                        codes, lanes)[0].cpu().numpy()
+        if len(s) <= limit:
+            return dict(enumerate(s.tolist())), {}
+        cut = np.sort(s)[::-1][limit - 1]
+        above, tied = np.flatnonzero(s > cut), np.flatnonzero(s == cut)
+        if len(above) + len(tied) == limit:
+            above, tied = np.concatenate([above, tied]), tied[:0]
+        return {int(a): float(s[a]) for a in above}, {int(a): float(s[a]) for a in tied}
+
+    def _instance(self, body):
+        hits = set()
+        for i, t in enumerate(self.truth):
+            inst = t["instance"]
+            if inst.startswith(body) or (len(body) == 32 and inst == body[:16]) or (len(body) >= 16 and inst == body[:8]):
+                hits.add(i)
+        return hits
+
+    def check_global(self, label, matches, units, limit, exclude=None):
+        opts = self.index._opts
+        definite, maybe = {}, {}
+        for u in units:
+            unit = IsccUnit(u)
+            if unit.unit_type.startswith("INSTANCE_"):
+                for a in self._instance(unit.body):
+                    definite.setdefault(a, {})[unit.unit_type] = 1.0
+                continue
+            sure, tied = self._found(self.types.index(unit.unit_type), unit.body, limit)
+            for found, out in ((sure, definite), (tied, maybe)):
+                for a, s in found.items():
+                    out.setdefault(a, {})[unit.unit_type] = max(0.0, s)
+            if tied and max(tied.values()) >= opts.match_threshold_units:
+                raise AssertionError(f"{label}: a tie at the top-{limit} cut above the threshold; the data cannot decide it")
+
+        def confident(types):
+            return any(s >= opts.match_threshold_units for s in types.values())
+
+        sure_ids = {self.ids[a] for a, t in definite.items() if confident(t)} - {exclude}
+        may_ids = sure_ids | {self.ids[a] for a in maybe if confident({**maybe[a], **definite.get(a, {})})} - {exclude}
+        got = [m.iscc_id for m in matches]
+        if len(got) != len(set(got)) or not set(got) <= may_ids or (len(may_ids) <= limit and not sure_ids <= set(got)):
+            raise AssertionError(f"{label}: global matches {sorted(got)} != brute force {sorted(sure_ids)} (+ ties {sorted(may_ids - sure_ids)})")
+        if len(got) != min(limit, len(sure_ids)) and len(may_ids) == len(sure_ids):
+            raise AssertionError(f"{label}: {len(got)} global matches, brute force has {len(sure_ids)}")
+        for m in matches:
+            a = self.asset_of[m.iscc_id]
+            sure_t, may_t = definite.get(a, {}), maybe.get(a, {})
+            if not set(sure_t) <= set(m.types) <= set(sure_t) | set(may_t):
+                raise AssertionError(f"{label} {m.iscc_id}: unit types {sorted(m.types)}, brute force {sorted(sure_t)}")
+            for t, s in m.types.items():
+                if abs(s - {**may_t, **sure_t}[t]) > SCORE_ATOL:
+                    raise AssertionError(f"{label} {m.iscc_id} {t}: score {s}, brute force {sure_t.get(t, may_t.get(t))}")
+            conf = [s for s in m.types.values() if s >= opts.match_threshold_units]
+            total = sum(s ** opts.confidence_exponent for s in conf) / sum(conf)
+            if abs(m.score - total) > SCORE_ATOL:
+                raise AssertionError(f"{label} {m.iscc_id}: score {m.score}, confidence weighting gives {total}")
+            if m.metadata is None or m.metadata.name != f"asset {a}":
+                raise AssertionError(f"{label} {m.iscc_id}: metadata {m.metadata} is not the stored asset's")
+        if [m.score for m in matches] != sorted((m.score for m in matches), reverse=True):
+            raise AssertionError(f"{label}: global matches not in score order")
+
+    def check_chunks(self, label, chunk_matches, query_sp, want_first):
+        """[simprint]'s checks on the wire: chunk scores by XOR + popcount,
+        the match is the asset's current stored vector (so no removed chunk
+        came back), asset scores recomputed from the chunks with the
+        document frequencies of the store, the expected asset first."""
+        store = self.index.store
+        db = f"sp:{PRODUCT_SP}"
+        total_assets = len(self.index)
+        queries = [ic.decode_base64(s) for s in query_sp]
+        got = [m.iscc_id for m in chunk_matches]
+        if got[: len(want_first)] != want_first:
+            raise AssertionError(f"{label}: chunk matches begin {got[:len(want_first)]}, expected {want_first}")
+        for m in chunk_matches:
+            a = self.asset_of[m.iscc_id]
+            t = m.types[PRODUCT_SP]
+            chunks = [(ic.decode_base64(c.query), ic.decode_base64(c.match), c.score, c.offset, c.freq) for c in t.chunks]
+            for _, found, _, offset, freq in chunks:
+                if freq != simprint_ops.count_doc_freq(store, db, found):
+                    raise AssertionError(f"{label} {m.iscc_id}: chunk freq {freq} is not the store's")
+            check_asset_match(
+                f"{label} {m.iscc_id}", (chunks, t.score), queries,
+                lambda f: simprint_ops.calculate_idf(f, total_assets),
+                lambda q: simprint_ops.count_doc_freq(store, db, q),
+                lambda off, a=a: self.truth[a]["sp"][off // 100].tobytes(),
+            )
+            if m.score != t.score or t.queried != len(queries) or t.matches != len(chunks):
+                raise AssertionError(f"{label} {m.iscc_id}: score {m.score} / queried {t.queried} / matches {t.matches} inconsistent")
+
+    def check_sweeps(self, label, swept):
+        """Completeness of the chunk sweeps behind one request (``swept``: the
+        engine index's ``(bodies, count, results)`` of each call): per chunk
+        query, the candidates are a top ``count`` of brute-force
+        ``hamming_scores`` over every stored chunk, on the card. The scores
+        equal brute force's top ``count`` in order, each candidate is the chunk
+        its key names and carries that chunk's brute-force score, and no key
+        comes twice. So none was dropped or under-scored, whatever the tie
+        order at the cut."""
+        n = self.sp_rows.shape[0]
+        for bodies, count, results in swept:
+            q_codes, _ = pack_codes(bodies, 4)
+            q = torch.from_numpy(q_codes.view(np.int32)).to(self.dev)
+            bf = torch.cat([hamming_scores(q, self.sp_rows[s : s + hs.PLAIN_CHUNK_ROWS], 128)
+                            for s in range(0, n, hs.PLAIN_CHUNK_ROWS)], dim=1)
+            m = min(count, n)
+            top = torch.topk(bf, m, dim=1).values.cpu().numpy()
+            if any(len(res[1]) != m for res in results):
+                raise AssertionError(f"{label}: a chunk query got {sorted({len(r[1]) for r in results})} candidates, not {m}")
+            keys = np.stack([res[0] for res in results])  # (Q, m, 16)
+            scores = np.stack([res[1] for res in results])
+            body = keys[..., :8].copy().view(">u8")[..., 0].astype(np.uint64)
+            pos = np.minimum(np.searchsorted(self.sorted_bodies, body), len(self.sorted_bodies) - 1)
+            if not np.array_equal(self.sorted_bodies[pos], body):
+                raise AssertionError(f"{label}: a candidate's key names no stored asset")
+            offset = keys[..., 8:12].copy().view(">u4")[..., 0].astype(np.int64)
+            rows = self.body_order[pos] * self.n_sp + offset // 100
+            if (offset % 100).any() or (offset // 100 >= self.n_sp).any():
+                raise AssertionError(f"{label}: a candidate's key names no stored chunk")
+            if (np.diff(np.sort(rows, axis=1), axis=1) == 0).any():
+                raise AssertionError(f"{label}: a chunk query got the same chunk twice")
+            if not np.array_equal(scores, top):
+                raise AssertionError(f"{label}: candidate scores != brute force's top {m} (a candidate dropped or under-scored)")
+            if not np.array_equal(scores, torch.gather(bf, 1, torch.from_numpy(rows).to(self.dev)).cpu().numpy()):
+                raise AssertionError(f"{label}: a candidate's score is not its chunk's brute-force score")
+
+
+def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS, n_cpu=PRODUCT_CPU_ASSETS,
+                  reps=PRODUCT_REPS, clients=PRODUCT_CLIENTS, per_client=PRODUCT_PER_CLIENT):
+    """The asset-level entry point on the card: ``TpuIndex.add_assets`` in
+    batches, 1% updated, ``search_assets`` by units, simprints and both
+    (limit 10 and 100, scan and exact, an ISCC-ID query) against brute
+    force, concurrent clients through the batcher, ``flush``/``close``/
+    reopen, and a small copy opened on the CPU answering the same."""
+    path = Path(tmp) / "product"
+    log(f"[product] TpuIndex (device={dev}): {n_assets} assets x (META, SEMANTIC, CONTENT, DATA units of 64-256 bits, "
+        f"INSTANCE, {n_sp} x 128-bit simprints, metadata) = {n_assets * n_sp} chunk rows "
+        f"(BASELINE config 4 cut to {100 * n_assets / C4_ASSETS:g}% of its assets: the store ingest is per-asset Python)")
+    reset_launches()
+    t0 = time.perf_counter()
+    assets, truth = product_assets(rng, n_assets, n_sp)
+    entries = [schema.IsccEntry(**a) for a in assets]
+    log(f"[product] made and validated {n_assets} entries: {time.perf_counter() - t0:.3f} s")
+    index = TpuIndex(path, device=dev)
+    t0 = time.perf_counter()
+    for b in range(0, n_assets, PRODUCT_BATCH):
+        results = index.add_assets(entries[b : b + PRODUCT_BATCH])
+        if [r.status.value for r in results] != ["created"] * len(results):
+            raise AssertionError(f"[product] add_assets batch {b}: not every asset was created")
+    add_s = time.perf_counter() - t0
+    log(f"[product] add_assets in batches of {PRODUCT_BATCH}: {add_s:.3f} s, {n_assets / add_s:.1f} assets/s, "
+        f"{n_assets * n_sp / add_s:.0f} chunk rows/s")
+    del entries
+
+    updated = list(range(50, n_assets, 100))  # 1%: a new DATA unit and INSTANCE; half also 10 new simprints
+    old_instance = {}
+    for i in updated:
+        t = truth[i]
+        old_instance[i] = t["instance"]
+        t["units"][3] = rng.bytes(len(t["units"][3]))
+        t["instance"] = rng.bytes(16)
+        if i % 200 == 50:
+            t["sp"] = t["sp"].copy()
+            t["sp"][:10] = rng.integers(0, 256, (10, 16), dtype=np.uint8)
+    t0 = time.perf_counter()
+    results = index.add_assets([schema.IsccEntry(**product_wire(i, truth[i])) for i in updated])
+    if [r.status.value for r in results] != ["updated"] * len(updated):
+        raise AssertionError("[product] re-added assets are not all 'updated'")
+    log(f"[product] {len(updated)} assets re-added with changed units ({len(updated) // 2} also with 10 new simprints): "
+        f"{time.perf_counter() - t0:.3f} s, all 'updated'")
+    oracle = ProductOracle(dev, truth, index)
+    for i in updated[:5]:
+        q = schema.IsccQuery(units=[_unit(ic.MT.INSTANCE, ic.ST.NONE, old_instance[i])])
+        if product_iscc_id(i) in [m.iscc_id for m in index.search_assets(q, limit=10).global_matches]:
+            raise AssertionError(f"[product] asset {i} still matches its replaced INSTANCE")
+
+    def query_of(i, kind):
+        w = product_wire(i, truth[i])
+        sp = {PRODUCT_SP: [s["simprint"] for s in w["simprints"][PRODUCT_SP]]}
+        return {"units": {"units": w["units"]}, "simprints": {"simprints": sp},
+                "both": {"units": w["units"], "simprints": sp}, "iscc_id": {"iscc_id": w["iscc_id"]}}[kind]
+
+    # The chunk index's sweeps (through its batcher) are recorded while the
+    # single requests run, to hold their candidates against brute force.
+    chunk_index = index._simprint_indexes[PRODUCT_SP]._index
+    swept = []
+
+    def recording_search(bodies, count, return_rows=False, _search=chunk_index.search):
+        out = _search(bodies, count, return_rows=return_rows)
+        swept.append((bodies, count, out))
+        return out
+
+    def checked(i, kind, limit, exact=False):
+        """(result, seconds of the search_assets call alone) after the checks."""
+        q = query_of(i, kind)
+        query = schema.IsccQuery(**q)
+        swept.clear()
+        t0 = time.perf_counter()
+        res = index.search_assets(query, limit=limit, exact=exact)
+        took = time.perf_counter() - t0
+        label = f"[product] {kind} asset {i} limit {limit}{' exact' if exact else ''}"
+        if "simprints" in q and not exact:
+            if len(swept) != 1 or len(swept[0][0]) != n_sp:
+                raise AssertionError(f"{label}: {len(swept)} chunk sweeps recorded, expected one of {n_sp} queries")
+            oracle.check_sweeps(label, swept)
+            checked_sweeps[limit] += 1
+        if kind == "iscc_id":
+            oracle.check_global(label, res.global_matches, query_of(i, "units")["units"], limit, exclude=q["iscc_id"])
+        elif "units" in q:
+            oracle.check_global(label, res.global_matches, q["units"], limit)
+        if "simprints" in q:
+            first = [product_iscc_id(i)] if exact else [product_iscc_id(i), product_iscc_id(i + 1)]
+            if exact:
+                if [m.iscc_id for m in res.chunk_matches[:1]] != first:
+                    raise AssertionError(f"{label}: exact chunk matches begin {[m.iscc_id for m in res.chunk_matches[:1]]}")
+            else:
+                oracle.check_chunks(label, res.chunk_matches, q["simprints"][PRODUCT_SP], first)
+        return res, took
+
+    originals = list(range(0, n_assets, 10))
+    cases = [(kind, limit, False) for kind in ("units", "simprints", "both", "iscc_id") for limit in (10, 100)]
+    cases.append(("simprints", 10, True))
+    answers = {}
+    checked_sweeps = {10: 0, 100: 0}
+    chunk_index.search = recording_search
+    try:
+        for kind, limit, exact in cases:  # warm: the first search of each shape builds and uploads partitions
+            checked(originals[0], kind, limit, exact)
+        reset_launches()
+        counted = 0
+        for kind, limit, exact in cases:
+            times = []
+            for r in range(reps):
+                i = originals[1 + r]
+                res, took = checked(i, kind, limit, exact)
+                answers[kind, limit, exact, i] = res
+                times.append(took)
+                counted += not exact
+            log(f"[product] search_assets {kind:9s} limit {limit:3d}{' exact' if exact else '      '}: median "
+                f"{statistics.median(times) * 1e3:.3f} ms of {reps} (min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), "
+                f"{len(res.global_matches)} global / {len(res.chunk_matches)} chunk matches; brute-force checks passed")
+    finally:
+        del chunk_index.search
+    log(f"[product] the chunk sweeps of {checked_sweeps[10]} limit-10 and {checked_sweeps[100]} limit-100 requests "
+        f"(counts {10 * 2 * index._opts.oversampling_factor} and {100 * 2 * index._opts.oversampling_factor} per chunk "
+        f"query): every candidate list a top count of brute-force hamming_scores over all "
+        f"{oracle.sp_rows.shape[0]} stored chunks, each with its chunk's score")
+    split_q = [schema.IsccQuery(**query_of(originals[1 + r], "both")) for r in range(reps)]
+    profile_device(f"[product profile {reps} x both limit 10]", lambda: [index.search_assets(q, limit=10) for q in split_q], dev)
+    counted += reps
+    for limit in (10, 100):
+        cycle = itertools.cycle(split_q)
+        host_split(f"[product host both limit {limit}]", lambda: index.search_assets(next(cycle), limit=limit), {
+            "device sweeps (waiting on the batchers)": ["batcher.py:search"],
+            "base64 decode": ["codec.py:decode_base64"],
+            "document frequencies (store dup scans)": ["simprint_ops.py:count_doc_freq"],
+            "simprint scoring (with the doc. frequencies)": ["simprint.py:_score_query_asset"],
+            "INSTANCE prefix scans": ["index.py:_search_instance_unit"],
+            "enrichment (store reads, metadata)": ["index.py:_convert_simprint_match", "kv.py:get_many"],
+            "wire types": ["schema.py:__post_init__", "schema.py:_model"],
+        }, reps=reps)
+        counted += reps
+    per_search = {name: n / counted for name, n in read_launches().items()}
+    log(f"[product] kernel launches per device search_assets call (mean of {counted}): {per_search}")
+
+    # Concurrent clients: the batcher fuses their sweeps; answers equal the sequential ones.
+    work = [originals[1 + reps + j] for j in range(clients * per_client)]
+    want = {i: index.search_assets(schema.IsccQuery(**query_of(i, "both")), limit=10).model_dump() for i in work}
+    sweeps0, fused0 = metrics.batch_queries._totals.get((), 0), metrics.batch_queries._sums.get((), 0.0)
+    got, errors = {}, []
+
+    def client(mine):
+        try:
+            for i in mine:
+                got[i] = index.search_assets(schema.IsccQuery(**query_of(i, "both")), limit=10).model_dump()
+        except Exception as exc:  # noqa: BLE001 - reported below, the phase fails
+            errors.append(exc)
+
+    threads = [threading.Thread(target=client, args=(work[c::clients],)) for c in range(clients)]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    wall = time.perf_counter() - t0
+    if errors or any(th.is_alive() for th in threads) or got != want:
+        raise AssertionError(f"[product] concurrent clients: errors {errors[:1]}, answers equal: {got == want}")
+    sweeps = metrics.batch_queries._totals.get((), 0) - sweeps0
+    fused = metrics.batch_queries._sums.get((), 0.0) - fused0
+    log(f"[product] {clients} concurrent clients x {per_client} 'both' requests: {wall:.3f} s, "
+        f"{len(work) / wall:.1f} query assets/s; {sweeps} device sweeps for {fused:.0f} queries "
+        f"({fused / max(sweeps, 1):.1f} per sweep); answers equal the sequential ones")
+
+    # The kernels at this path's own shapes, on its chunk partition: a limit-100
+    # request's chunk queries through the tensor-core phase 1, and one query
+    # slice of its phases 2-3 (PHASE3_BUDGET_BYTES) at its count's candidate blocks.
+    part = chunk_index._sync_device()[4]
+    kk = candidate_blocks(100 * 2 * index._opts.oversampling_factor, part.cap)
+    step = max(1, hs.PHASE3_BUDGET_BYTES // (kk * hs.BLOCK * hs.PHASE3_ROW_BYTES))
+    chunk_queries = [v.tobytes() for v in truth[originals[1]]["sp"]]
+    with uncounted():
+        stats = path_kernel_stats("[product]", dev, part, chunk_queries, {
+            "blockmax_mma_packed": (len(chunk_queries), None), "gather_rescore": (min(step, len(chunk_queries)), kk),
+        })
+    del part
+
+    # Durability: flush, close, reopen; the same answers.
+    t0 = time.perf_counter()
+    index.flush()
+    index.close()
+    close_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    index = TpuIndex(path, device=dev)
+    open_s = time.perf_counter() - t0
+    oracle.index = index
+    for (kind, limit, exact, i), res in answers.items():
+        if index.search_assets(schema.IsccQuery(**query_of(i, kind)), limit=limit, exact=exact).model_dump() != res.model_dump():
+            raise AssertionError(f"[product] after reopen: {kind} asset {i} limit {limit} answers differently")
+    index.close()
+    log(f"[product] flush + close {close_s:.3f} s, reopen {open_s:.3f} s ({sum(f.stat().st_size for f in path.rglob('*') if f.is_file())} "
+        f"bytes on disk): all {len(answers)} answers identical after reopen")
+
+    # A small copy opened on the CPU answers as the card does (model_dump).
+    small, small_cpu = Path(tmp) / "product_small", Path(tmp) / "product_small_cpu"
+    index = TpuIndex(small, device=dev)
+    index.add_assets([schema.IsccEntry(**a) for a in assets[:n_cpu]])
+    index.flush()
+    index.close()
+    shutil.copytree(small, small_cpu)
+    on_card, on_cpu = TpuIndex(small, device=dev), TpuIndex(small_cpu, device="cpu")
+    compared = 0
+    for i in range(0, min(n_cpu, 30), 10):  # limit 10: the CPU's plain phase 3 is slow at count 4,000
+        for kind, limit, exact in (case for case in cases if case[1] == 10):
+            q = schema.IsccQuery(**query_of(i, kind))
+            if on_card.search_assets(q, limit=limit, exact=exact).model_dump() != \
+                    on_cpu.search_assets(q, limit=limit, exact=exact).model_dump():
+                raise AssertionError(f"[product] {n_cpu}-asset copy: {kind} asset {i} limit {limit} differs on the CPU")
+            compared += 1
+    on_card.close()
+    on_cpu.close()
+    launches = read_launches()
+    log(f"[product] {n_cpu}-asset copy opened with device='cpu': {compared} answers model_dump()-identical to the card's")
+    log(f"[product] kernel launches of the path: {launches}")
+    if dev.type == "cuda":
+        for name in PATH_KERNELS:
+            if launches[name] <= 0:
+                raise AssertionError(f"the product path never launched {name}")
+    return launches, stats
+
+
 def _experiment_data(dev, n, nq, seed):
     """256-bit rows on the card from torch.randint words, 5% tombstones and
     a dead block (block 3), and nq queries drawn from the rows, the odd ones
@@ -1046,6 +1880,14 @@ def main():
                 phase_profile(idx, batch, scan_kernel)
         phase_persist(rng, dev, idx, queries, tmp)
         del idx, oracle
+    by_path = {"config3": {name: launches[name] for name in PATH_KERNELS}}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        t0 = time.perf_counter()
+        by_path["simprint"], path_stats = phase_simprint(rng, dev, tmp)
+        log(f"[simprint] phase time {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        by_path["product"], product_stats = phase_product(rng, dev, tmp)
+        log(f"[product] phase time {time.perf_counter() - t0:.1f} s")
     exp_launches, exp_stats = phase_experiments(dev)
     launches.update(exp_launches)
     stats.update(exp_stats)
@@ -1057,6 +1899,15 @@ def main():
         if "also_replaces" in meta:
             entry["also_replaces"] = meta["also_replaces"]
         entry.update({"launches": launches[name], **stats[name]})
+        if name in PATH_KERNELS:
+            # The search paths' launches: config 3 (phases 4-6), the simprint
+            # engine at config 4 and the asset-level entry point; and the
+            # kernel at the simprint and product paths' shapes.
+            entry["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
+            entry["launches"] = sum(entry["launches_by_path"].values())
+            entry["at_simprint_shapes"] = path_stats[name]
+            if name in product_stats:
+                entry["at_product_shapes"] = product_stats[name]
         summary.append(entry)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({

@@ -1,7 +1,9 @@
 """
-Device-resident packed-code NPHD index in PyTorch (port of
+Device-resident packed-code indexes in PyTorch (port of
 ``iscc_search_tpu/engine/device_index.py``: the host arrays, the device
-mirror, the exact search and the segment persistence).
+mirror, the exact search and the segment persistence): ``DeviceNphdIndex``
+over 8-byte keys and ``DeviceHammingIndex``, the simprint engine's
+fixed-width index over 16-byte keys.
 
 - Codes live on the host as a bit-packed ``(N, 8)`` uint32 lane matrix plus
   per-row lane counts, keys and a validity bitmap. Updates tombstone the old
@@ -101,6 +103,16 @@ def _to_device(array, device):
 # queries. Taken from the [route] table of chip_smoke.py (NVIDIA H100 80GB
 # HBM3, 700.00 W; PERF.md section 6), which fails when the table goes stale.
 _AUTO_MMA_MIN_Q = {2: 48, 4: 48, 6: 32, 8: 32}
+
+
+def resolve_device(device):
+    # type: (str | torch.device) -> torch.device
+    """``device`` as a torch.device. A CUDA device without a card raises:
+    nothing falls back to the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device={str(device)!r}, but no CUDA device is available (pass device='cpu' for the CPU)")
+    return dev
 
 
 def auto_phase1(nq, lanes):
@@ -215,7 +227,7 @@ class PackedCodeIndex:
             value runs the plain version.
         :param mesh: must be None (single device)
         :param device: torch device of the partitions, "cuda" by default;
-            nothing is auto-detected
+            nothing is auto-detected, and "cuda" without a card raises
         """
         if mesh is not None:
             raise NotImplementedError(f"multi-device mesh search is not ported yet ({_TODO_PARALLEL})")
@@ -231,7 +243,7 @@ class PackedCodeIndex:
         self.recall_target = recall_target if (recall_target is None or recall_target < 1.0) else None
         self.scan_kernel = scan_kernel
         self.mesh = None
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         # An in-memory index has no directory to save to (a follower of the
         # JAX engine's multi-host service turns this off the same way).
         self.save_enabled = self.path is not None
@@ -1092,3 +1104,22 @@ class DeviceNphdIndex(PackedCodeIndex):
         """Top-``count`` matches for one query as {uint64 key: score}."""
         ((keys, scores),) = self.search([query_body], count)
         return {int.from_bytes(keys[i].tobytes(), "big"): float(scores[i]) for i in range(len(scores))}
+
+
+class DeviceHammingIndex(PackedCodeIndex):
+    """
+    Fixed-width Hamming index over 16-byte composite keys
+    (iscc_id_body(8) + offset(4) + size(4)), the simprint engine's store
+    (port of the JAX engine's ``DeviceHammingIndex``).
+
+    Every row has ``ndim`` bits, so the NPHD score of the shared search is
+    the Hamming similarity ``1 - hamming / ndim``: the same phase-1 kernels
+    and ``gather_rescore`` serve it, one partition of ``ndim / 32`` lanes.
+    """
+
+    metric = "hamming"
+    key_bytes = 16
+
+    def __init__(self, path, ndim=128, shard_size=512 * 1024 * 1024, scan_kernel="auto", device="cuda"):
+        # type: (str | Path | None, int, int, str, str | torch.device) -> None
+        super().__init__(path, max_dim=ndim, shard_size=shard_size, ndim=ndim, scan_kernel=scan_kernel, device=device)

@@ -52,6 +52,11 @@ from iscc_search_tpu_torch.ops.pm1_scan import (
 BLOCK = 128  # rows per block-max cell
 PLAIN_CHUNK_ROWS = 65536  # rows per step of the plain phase 1 (bounds its memory)
 UNPACK_CHUNK_ROWS = 65536  # rows per step of build_unpacked_db (bounds its memory)
+PHASE3_BUDGET_BYTES = 1 << 30  # working set of one step of phases 2-3 (bounds their memory at large k)
+# Working bytes per candidate row in phases 2-3: row id (8), validity (2),
+# dot (4), score temporaries (12), the hierarchical top-k's gathered block
+# maxima (4, at most) and top-k outputs (2, amortized).
+PHASE3_ROW_BYTES = 32
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -359,29 +364,62 @@ def blockmax_topk_impl(
         raise ValueError(f"phase1 must be one of {sorted(PHASE1)}, got {phase1!r}")
     if phase1 == "mma_twin" and db_unpacked is None:
         raise ValueError("unpacked=True requires db_unpacked")
-    n = db_packed.shape[0]
     q = q_packed.shape[0]
-    total_blocks = n // BLOCK
+    total_blocks = db_packed.shape[0] // BLOCK
     db = db_unpacked if phase1 == "mma_twin" else db_packed
     block_max = PHASE1[phase1](q_packed, min_lanes, q_scale, db, db_valid)
     kk = min(k, total_blocks)
-    top_blocks = topk_blocks_hier(block_max, kk)  # (Q, kk) int64
-    offsets = torch.arange(BLOCK, device=db_packed.device)
-    rows = (top_blocks[:, :, None] * BLOCK + offsets).reshape(q, kk * BLOCK)
-    cand_valid = db_valid.reshape(total_blocks, BLOCK)[top_blocks].reshape(q, kk * BLOCK)
-    dots = gather_rescore(q_packed, min_lanes, top_blocks.to(torch.int32), db_packed)
-    # Product and sum rounded separately, as the JAX phase 3 rounds them
-    # (phase 1 rounds once; both are strictly increasing in the dot, so
-    # the block cut stays exact).
-    scores = 0.5 + dots * q_scale[:, None]
-    scores = torch.where(cand_valid.to(torch.bool), scores, NEG_SCORE)
-    out_k = min(k, scores.shape[1])
-    fs, pos = torch.topk(scores, out_k, dim=1)
-    fi = torch.where(fs > NEG_SCORE, torch.gather(rows, 1, pos), -1).to(torch.int32)
+    out_k = min(k, kk * BLOCK)
+    # Phases 2 and 3 hold (Q, kk * 128) candidates: they run over slices of
+    # the queries that fit PHASE3_BUDGET_BYTES. Each query's candidates are
+    # its own, so the scores do not depend on the slicing. Which rows tied
+    # at the cut are kept follows torch.topk, whose CUDA algorithm (and with
+    # it the tie order) is chosen by shape, the number of queries included.
+    step = max(1, PHASE3_BUDGET_BYTES // (kk * BLOCK * PHASE3_ROW_BYTES))
+    parts = [
+        _rescore_topk(q_packed[s : s + step], min_lanes[s : s + step], q_scale[s : s + step],
+                      block_max[s : s + step], db_packed, db_valid, kk, out_k)
+        for s in range(0, q, step)
+    ]
+    fs, fi = (torch.cat(column) for column in zip(*parts))
     if out_k < k:
         fs = torch.nn.functional.pad(fs, (0, k - out_k), value=NEG_SCORE)
         fi = torch.nn.functional.pad(fi, (0, k - out_k), value=-1)
     return fs, fi
+
+
+def _rescore_topk(q_packed, min_lanes, q_scale, block_max, db_packed, db_valid, kk, out_k):
+    # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+    """Phases 2 and 3 for a slice of the queries: the top-``kk`` blocks, the
+    exact rescore of their rows and the top-``out_k``. The candidate blocks
+    are rescored in steps that fit PHASE3_BUDGET_BYTES; a step's top-k is
+    merged into the best so far (one step, and so the plain top-k, unless a
+    single query's candidates exceed the budget)."""
+    q = q_packed.shape[0]
+    total_blocks = db_packed.shape[0] // BLOCK
+    top_blocks = topk_blocks_hier(block_max, kk)  # (q, kk) int64
+    offsets = torch.arange(BLOCK, device=db_packed.device)
+    seg = max(1, PHASE3_BUDGET_BYTES // (q * BLOCK * PHASE3_ROW_BYTES))
+    best = None
+    for c in range(0, kk, seg):
+        blocks = top_blocks[:, c : c + seg].contiguous()
+        width = blocks.shape[1] * BLOCK
+        rows = (blocks[:, :, None] * BLOCK + offsets).reshape(q, width)
+        cand_valid = db_valid.reshape(total_blocks, BLOCK)[blocks].reshape(q, width)
+        dots = gather_rescore(q_packed, min_lanes, blocks.to(torch.int32), db_packed)
+        # Product and sum rounded separately, as the JAX phase 3 rounds them
+        # (phase 1 rounds once; both are strictly increasing in the dot, so
+        # the block cut stays exact).
+        scores = 0.5 + dots * q_scale[:, None]
+        scores = torch.where(cand_valid.to(torch.bool), scores, NEG_SCORE)
+        s, pos = torch.topk(scores, min(out_k, width), dim=1)
+        r = torch.gather(rows, 1, pos)
+        if best is not None:
+            s, pos = torch.topk(torch.cat([best[0], s], dim=1), min(out_k, best[0].shape[1] + s.shape[1]), dim=1)
+            r = torch.gather(torch.cat([best[1], r], dim=1), 1, pos)
+        best = (s, r)
+    fs, rows = best
+    return fs, torch.where(fs > NEG_SCORE, rows, -1).to(torch.int32)
 
 
 def blockmax_topk_packedq_impl(

@@ -59,3 +59,23 @@ def nphd_scores(q_codes, q_lanes, db_codes, db_lanes, db_valid=None):
     if db_valid is not None:
         scores = torch.where(db_valid.to(torch.bool)[None, :], scores, NEG_SCORE)
     return scores
+
+
+def hamming_scores(q_codes, db_codes, ndim_bits, db_valid=None):
+    # type: (torch.Tensor, torch.Tensor, int, torch.Tensor | None) -> torch.Tensor
+    """
+    Dense fixed-width Hamming similarity: score = 1 - hamming / ndim_bits
+    (the simprint score; port of the JAX ``hamming_scores``).
+
+    :param q_codes: (Q, L) int32-carried uint32 packed query simprints
+    :param db_codes: (N, L) int32-carried uint32 packed stored simprints
+    :param ndim_bits: simprint width in bits (lanes beyond it are zero on
+        both sides and add nothing to the distance)
+    :param db_valid: optional (N,) bool; invalid rows score NEG_SCORE
+    :return: (Q, N) float32 scores
+    """
+    ham = popcount32(q_codes[:, None, :] ^ db_codes[None, :, :]).sum(dim=-1)
+    scores = 1.0 - ham.to(torch.float32) / float(ndim_bits)
+    if db_valid is not None:
+        scores = torch.where(db_valid.to(torch.bool)[None, :], scores, NEG_SCORE)
+    return scores

@@ -453,3 +453,168 @@ def test_bitplane_kernels_equal_plain_and_blockmax(dev):
         assert exp_bitplane_u8.blockmax_subword.launches == before + 1
         assert torch.equal(got, exp_bitplane_u8.blockmax_subword_plain(q, q_scale, twin, pen, wb))
         assert torch.equal(got, popc)
+
+
+# ------------------------------------------------ the asset-level entry point
+
+
+def _flip(rng, body, nbits):
+    arr = np.frombuffer(body, np.uint8).copy()
+    for p in rng.choice(len(arr) * 8, nbits, replace=False):
+        arr[p // 8] ^= 1 << (p % 8)
+    return arr.tobytes()
+
+
+def test_hamming_index_on_card_equals_the_cpu_index(dev, tmp_path):
+    from iscc_search_tpu_torch.engine import DeviceHammingIndex
+
+    rng = np.random.default_rng(31)
+    n = 20_000
+    keys = [i.to_bytes(8, "big") + (i % 100).to_bytes(4, "big") + (100).to_bytes(4, "big") for i in range(n)]
+    vecs = [rng.bytes(16) for _ in range(n)]
+    for i in range(50):  # near-duplicates of row 0 at distinct distances
+        vecs[1000 + i] = _flip(rng, vecs[0], i + 1)
+    indexes = [DeviceHammingIndex(tmp_path / d, ndim=128, device=d) for d in ("cuda", "cpu")]
+    for idx in indexes:
+        idx.add(keys, vecs)
+        idx.remove(keys[::64])
+    queries = [vecs[0], vecs[5], vecs[777]] + [rng.bytes(16) for _ in range(60)]  # Q=63 (popc) and Q=3
+    for count in (n, 40):
+        for batch in (queries, queries[:3]):
+            on_card, on_cpu = (idx.search(batch, count, return_rows=True) for idx in indexes)
+            for (kc, sc, rc), (kp, sp, rp) in zip(on_card, on_cpu):
+                assert np.array_equal(sc, sp)
+                if count == n:  # no cut: the same rows (tie order aside)
+                    assert sorted(zip(-sc, rc)) == sorted(zip(-sp, rp))
+    for idx in indexes:
+        idx.close()
+
+
+def _assets(rng, n):
+    from iscc_search_tpu_torch import codec as ic
+
+    def unit(mtype, stype, body):
+        header = ic.encode_header(mtype, stype, ic.VS.V0, ic.encode_length(mtype, len(body) * 8))
+        return "ISCC:" + ic.encode_base32(header + body)
+
+    out = []
+    for i in range(n):
+        src = out[i - 1] if i % 10 == 1 else None
+        bodies = [rng.bytes(int(w)) for w in rng.choice([8, 16, 32], 3)]
+        sps = [rng.bytes(16) for _ in range(30)]
+        if src is not None:
+            bodies = [_flip(rng, b, 1 + i % 5) for b in src["_bodies"]]
+            sps = [_flip(rng, v, int(f)) for v, f in zip(src["_sps"], rng.integers(0, 9, 30))]
+        out.append({
+            "iscc_id": ic.gen_iscc_id_v1(timestamp_us=i + 1, server_id=i % 4096)["iscc"],
+            "units": [unit(ic.MT.META, ic.ST.NONE, bodies[0]), unit(ic.MT.CONTENT, ic.ST_CC.TEXT, bodies[1]),
+                      unit(ic.MT.DATA, ic.ST.NONE, bodies[2]), unit(ic.MT.INSTANCE, ic.ST.NONE, rng.bytes(8))],
+            "simprints": {"CONTENT_TEXT_V0": [{"simprint": ic.encode_base64(v), "offset": c * 50, "size": 50}
+                                              for c, v in enumerate(sps)]},
+            "metadata": {"name": f"asset {i}"},
+            "_bodies": bodies, "_sps": sps,
+        })
+    return out
+
+
+def test_search_assets_on_card_equals_the_cpu_index(dev, tmp_path):
+    """``TpuIndex`` on the card and on the CPU, filled alike: every search
+    answers ``model_dump()``-identically (scan and exact, limits 5 and 50,
+    concurrent requests through the batcher)."""
+    import threading
+
+    from iscc_search_tpu_torch.indexes.tpu import TpuIndex
+    from iscc_search_tpu_torch.schema import IsccEntry, IsccQuery
+
+    rng = np.random.default_rng(32)
+    assets = _assets(rng, 600)
+    entries = [IsccEntry(**{k: v for k, v in a.items() if not k.startswith("_")}) for a in assets]
+    indexes = [TpuIndex(tmp_path / d, device=d) for d in ("cuda", "cpu")]
+    for idx in indexes:
+        for b in range(0, len(entries), 200):
+            idx.add_assets(entries[b : b + 200])
+    queries = []
+    for i in (0, 10, 250, 591):
+        sp = {"CONTENT_TEXT_V0": [s["simprint"] for s in assets[i]["simprints"]["CONTENT_TEXT_V0"]]}
+        queries += [IsccQuery(units=assets[i]["units"]), IsccQuery(simprints=sp),
+                    IsccQuery(units=assets[i]["units"][:2], simprints=sp), IsccQuery(iscc_id=assets[i]["iscc_id"])]
+    for q in queries:
+        for limit in (5, 50):
+            for exact in (False, True):
+                on_card, on_cpu = (idx.search_assets(q, limit=limit, exact=exact).model_dump() for idx in indexes)
+                assert on_card == on_cpu
+    want = [indexes[1].search_assets(q, limit=5).model_dump() for q in queries]
+    got = [None] * len(queries)
+
+    def client(j):
+        got[j] = indexes[0].search_assets(queries[j], limit=5).model_dump()
+
+    threads = [threading.Thread(target=client, args=(j,)) for j in range(len(queries))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    assert not any(t.is_alive() for t in threads) and got == want
+    for idx in indexes:
+        idx.close()
+
+
+def test_the_batcher_searches_on_the_default_stream_of_its_thread(dev, tmp_path):
+    """The batcher's collector thread calls ``index.search``; the search
+    syncs the current stream of that thread, which is the device's default
+    stream, where the search's kernels ran."""
+    from iscc_search_tpu_torch.engine.batcher import SearchBatcher
+
+    rng = np.random.default_rng(33)
+    idx = DeviceNphdIndex(tmp_path / "i", device="cuda")
+    bodies = [rng.bytes(32) for _ in range(3000)]
+    idx.add(list(range(3000)), bodies)
+    streams = []
+    search = idx.search
+
+    def spy(*args, **kwargs):
+        streams.append(torch.cuda.current_stream(dev) == torch.cuda.default_stream(dev))
+        return search(*args, **kwargs)
+
+    idx.search = spy
+    batcher = SearchBatcher(idx, max_batch=64, window_ms=1.0)
+    got = batcher.search(bodies[:20], 10)
+    batcher.close()
+    del idx.search
+    want = idx.search(bodies[:20], 10)
+    assert streams == [True]
+    assert all(np.array_equal(a, b) for g, w in zip(got, want) for a, b in zip(g, w))
+    idx.close()
+
+
+@pytest.mark.parametrize("k", [3, 10])
+@pytest.mark.parametrize("queries_per_step", [1, 7])
+def test_phase3_query_split_is_exact_on_the_card(dev, monkeypatch, queries_per_step, k):
+    """Fault 3's repair on the card: phases 2-3 over slices of the queries
+    give ``torch.equal`` results to the unsplit run, ties included. The
+    slices hold fewer than 8,000 candidates per query and at most 77
+    queries, where ``torch.topk`` on CUDA takes the same algorithm whatever
+    the number of queries (its tie order depends on that choice)."""
+    q_packed, min_lanes, q_scale, db, valid, _ = _case(dev, 128, seed=9, cap=128 * 400, nq=77)
+    args = (q_packed, min_lanes, q_scale, db, valid, k)
+    want = hs.blockmax_topk_impl(*args, phase1="popc")
+    monkeypatch.setattr(hs, "PHASE3_BUDGET_BYTES", queries_per_step * k * hs.BLOCK * hs.PHASE3_ROW_BYTES)
+    got = hs.blockmax_topk_impl(*args, phase1="popc")
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_the_store_builds_from_its_own_source_on_the_card_host():
+    """The port's host store compiles from ``native/store.cpp`` with g++
+    into ``build/`` (the card's host has g++ for nvcc) and round-trips."""
+    import tempfile
+
+    from iscc_search_tpu_torch.store import HostStore, kv
+
+    lib = kv._build_library()
+    assert lib.is_file() and lib.parent.parent == kv.BUILD_ROOT
+    with tempfile.TemporaryDirectory() as tmp:
+        store = HostStore(tmp + "/s")
+        store.dup_putmulti("d", [(b"k", b"v2"), (b"k", b"v1")])
+        store.put("p", b"a", b"b")
+        assert store.get_dups("d", b"k") == [b"v1", b"v2"] and store.get("p", b"a") == b"b"
+        store.close()

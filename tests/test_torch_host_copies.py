@@ -1,0 +1,103 @@
+"""The host modules the port copies from the JAX package are copies.
+
+The card's Python cannot import the JAX package (ROADMAP.md), so the port
+keeps its own copy of each host module it needs. Every function and method
+of a copy compiles to the same bytecode, names and constants as its original,
+with the package name ``iscc_search_tpu_torch`` read as ``iscc_search_tpu``
+and docstrings left out. Where the port changes a module on purpose (the
+``device`` argument, the store's build, the multi-host paths that raise), the
+functions that differ are listed here by name, and every other function is
+still held to its original.
+"""
+
+import importlib
+import inspect
+import types
+
+import pytest
+
+PORT = "iscc_search_tpu_torch"
+JAX = "iscc_search_tpu"
+
+
+def _norm(value):
+    return value.replace(PORT, JAX) if isinstance(value, str) else value
+
+
+def _code_key(code, doc=None):
+    """Bytecode, names and constants of a code object (nested code objects
+    keyed the same way), the docstring left out."""
+    consts = tuple(
+        _code_key(c) if isinstance(c, types.CodeType) else _norm(c)
+        for c in code.co_consts
+        if doc is None or c != doc
+    )
+    return code.co_code, tuple(_norm(n) for n in code.co_names), code.co_varnames, consts
+
+
+def _functions(module):
+    """{qualified name: code key} of every function and method defined in
+    ``module`` (properties by their getter)."""
+    out = {}
+
+    def visit(prefix, namespace):
+        for name, obj in vars(namespace).items():
+            if isinstance(obj, (staticmethod, classmethod)):
+                obj = obj.__func__
+            if isinstance(obj, property):
+                obj = obj.fget
+            if inspect.isfunction(obj) and obj.__module__ == module.__name__:
+                out[prefix + name] = _code_key(obj.__code__, obj.__doc__)
+            elif inspect.isclass(obj) and obj.__module__ == module.__name__ and not prefix:
+                visit(name + ".", obj)
+
+    visit("", module)
+    return out
+
+
+# module (relative to either package) -> (functions the port changes,
+# functions only the JAX package has, functions only the port has)
+COPIES = {
+    "codec": ((), (), ()),
+    "models": ((), (), ()),
+    "utils": ((), (), ()),
+    "engine.simprint_ops": ((), (), ()),
+    "engine.batcher": ((), (), ()),
+    "indexes.common": ((), (), ()),
+    "server.metrics": ((), (), ()),
+    # The shared library is built with g++ into build/, never with make
+    # inside the package.
+    "store.kv": (("_load_library",), ("_lib_is_fresh", "_build_library"), ("build_key", "_build_library")),
+    # The device argument.
+    "engine.simprint": (("SimprintEngine.__init__",), (), ()),
+    # The device argument; a mesh and the multi-host control plane raise.
+    "indexes.tpu.index": (
+        ("TpuIndex.__init__", "TpuIndex.close", "TpuIndex.rebuild", "TpuIndex._device_mesh", "TpuIndex.follow",
+         "TpuIndex._new_nphd_index", "TpuIndex._new_simprint_index", "TpuIndex._get_or_create_nphd_index"),
+        ("TpuIndex._init_multihost", "TpuIndex._replica_name", "TpuIndex._resolve_replica"),
+        (),
+    ),
+    "indexes.tpu.manager": (
+        ("TpuIndexManager.__init__", "TpuIndexManager.create_index", "TpuIndexManager._get_or_load_index"),
+        ("TpuIndexManager.follow_index", "TpuIndexManager.open_index"),
+        (),
+    ),
+}
+
+
+@pytest.mark.parametrize("module", sorted(COPIES))
+def test_the_port_module_is_a_copy_of_the_reference(module):
+    changed, jax_only, port_only = COPIES[module]
+    ref = _functions(importlib.import_module(f"{JAX}.{module}"))
+    port = _functions(importlib.import_module(f"{PORT}.{module}"))
+    assert set(ref) - set(port) == set(jax_only) - set(port_only)
+    assert set(port) - set(ref) == set(port_only) - set(jax_only)
+    differ = sorted(name for name in set(ref) & set(port) if ref[name] != port[name])
+    assert differ == sorted(set(changed) | (set(jax_only) & set(port_only)))
+
+
+def test_the_store_source_is_a_copy():
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    assert (root / PORT / "native" / "store.cpp").read_bytes() == (root / JAX / "native" / "store.cpp").read_bytes()
