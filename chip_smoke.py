@@ -16,20 +16,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    shared-memory layout of ``csrc/blockmax_mma.cu``), then each kernel
    against its plain PyTorch version on the card, ``torch.equal``, over all
    four widths, query tiles, short and long queries, tombstones and fully
-   invalid blocks (the two tensor-core phase-1 entries also against the
+   invalid blocks (the three tensor-core phase-1 entries also against the
    popc ``blockmax``), then at the shapes of the config-3 partitions
-   (Q=512, 16 candidate blocks per query) with the time of each beside its
-   plain version's (and beside ``blockmax``'s). ``gather_rescore`` runs
-   shorter than its Python wrapper, so its time is a CUDA-graph replay of
-   its calls (the device's clock); the host-paced reading is printed
-   beside it;
+   (Q=512, 16 candidate blocks per query; ``blockmax_small`` at Q=32, in
+   its range) with the time of each beside its plain version's (and beside
+   ``blockmax``'s). ``gather_rescore`` and ``blockmax_small`` run shorter
+   than their Python wrappers, so their times are CUDA-graph replays of
+   their calls (the device's clock); ``gather_rescore``'s host-paced
+   reading is printed beside it;
 4. slice   — ``DeviceNphdIndex(path, device="cuda")`` (``scan_kernel``
    left at ``"auto"``) filled through ``add_packed``, 1/64 of the keys
    removed, 4,096 rows appended through ``add``, then ``search`` of 512
    live rows at k=10: self-match at rank 0 with score 1.0, the top-10 of 16
    sampled queries against brute-force ``nphd_scores`` over the whole
-   database, no removed key returned, and the search launched
-   ``blockmax_mma_packed`` and ``gather_rescore`` and no ``blockmax``;
+   database, no removed key returned, and the search launched the phase-1
+   kernels ``auto_phase1`` names and ``gather_rescore``, and no other;
 5. twin    — the int8-twin route over the engine's own four partitions:
    ``build_unpacked_db`` on the card (seconds and bytes printed), then
    ``blockmax_topk_packedq_impl(..., db_unpacked=twin, unpacked=True)``
@@ -38,17 +39,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    kernels launched; results ``torch.equal`` to the route without a twin
    and to ``blockmax``, with the time of each route;
 6. route   — phase 1 by batch size, on the engine's four partitions:
-   ``blockmax`` (XOR + popc) and ``blockmax_mma_packed`` (``wgmma``) at Q in
-   1..1024, CUDA-graph replays, ``torch.equal`` at every point; the table
-   Q x width x {popc ms, mma ms}, the crossover per width, and what
+   ``blockmax`` (XOR + popc), ``blockmax_small`` (A unpacked in registers:
+   ``mma.sync``, ``wgmma`` from 33 queries) and ``blockmax_mma_packed``
+   (``wgmma``, rows staged in shared memory) at Q in 1..1024, CUDA-graph replays,
+   ``torch.equal`` to ``blockmax`` at every point; the table Q x width x
+   {popc, small, mma ms}, the fastest per width and Q, and what
    ``scan_kernel="auto"`` takes (it fails if that is more than 1.5x the
-   other kernel's time anywhere). Then warm searches at Q=512 and Q=1
-   under ``"popc"``, ``"mma"`` and ``"auto"``, four rounds of 7 in
-   alternating order, each checked against brute force, equal to the
-   ``"popc"`` results and launching the phase-1 kernels its
-   ``scan_kernel`` names; the JSON summary's ``launches`` of
-   ``blockmax`` and ``blockmax_mma_packed`` are those of the ``"auto"``
-   searches;
+   fastest kernel's time anywhere). Then warm searches at Q=512, 32 and 1
+   under ``"popc"``, ``"mma_small"``, ``"mma"`` and ``"auto"``, four rounds
+   of 7 in alternating order, each checked against brute force, equal to
+   the ``"popc"`` results and launching the phase-1 kernels its
+   ``scan_kernel`` names; the ``"auto"`` searches launch each kernel
+   ``auto_phase1`` names there and no other. The JSON summary's config-3
+   ``launches`` are those of the slice's and the ``"auto"`` searches, and
+   each phase-1 kernel's ``by_q`` holds its [route] times per sweep with
+   their bounds;
 7. persist — BASELINE config 2 at its own size: 1,048,576 random 256-bit
    codes, keys 1..N, 1/64 tombstoned, in a fresh temporary directory with
    8 MiB shards (five sealed segments). Search (a), ``save(wait=True)``,
@@ -76,12 +81,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``search_raw_many`` at 10 and 100 chunks per query asset in batches of
    1, 8 and 32 (limit 10, threshold 0.75, a constant document frequency),
    median warm ms and query assets per second, the device split, memory and
-   launches. Every matched chunk's score equals the host's XOR + popcount,
-   every asset score its recomputation from the chunks, every planted asset
-   is at rank 0 with all its live chunks, no removed chunk comes back. Then
-   ``blockmax`` (the narrowest batch), ``blockmax_mma_packed`` (a 512-query
-   sweep) and ``gather_rescore`` (the count's top blocks) against their
-   plain versions on the 100,000,000-row partition, with their times;
+   launches (each phase-1 kernel ``auto_phase1`` names for the sweeps'
+   batches, and no other). Every matched chunk's score equals the host's
+   XOR + popcount, every asset score its recomputation from the chunks,
+   every planted asset is at rank 0 with all its live chunks, no removed
+   chunk comes back. Then the three phase-1 kernels at Q=10 and Q=100 (one
+   asset's chunks), ``blockmax_mma_packed`` at Q=512 (a full sweep) and
+   ``gather_rescore`` (the count's top blocks) against their plain versions
+   on the 100,000,000-row partition, with their times and bounds;
 10. product — ``TpuIndex`` on the card: 20,000 assets (units of 64-256 bits,
    INSTANCE, 100 x 128-bit simprints, metadata; config 4 cut to 2% of its
    assets) through ``add_assets`` in batches of 1,000, 1% re-added with
@@ -92,8 +99,8 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    checks of phase 9 with the store's document frequencies; and every chunk
    sweep's candidates, 400 or 4,000 per chunk query, against brute-force
    ``hamming_scores`` over all stored chunks); 8 concurrent clients through
-   the batcher (answers equal the sequential ones); ``blockmax_mma_packed``
-   (a request's 100 chunk queries) and ``gather_rescore`` (one 64-query
+   the batcher (answers equal the sequential ones); the phase-1 kernel
+   ``"auto"`` takes for a request's 100 chunk queries and ``gather_rescore`` (one 64-query
    slice of phases 2-3 at the 4,096 candidate blocks of count 4,000)
    against their plain versions on the product's chunk partition;
    ``flush``/``close``/reopen (identical answers); a 1,000-asset copy
@@ -104,7 +111,7 @@ they drive their path and read them just after (phase 10's kernel-against-
 plain launches are not counted); the JSON summary's ``launches`` of the path
 kernels is the sum over the three search paths, ``launches_by_path`` splits
 it, and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
-10's kernel-against-plain numbers.
+10's kernel-against-plain numbers, one entry per shape.
 
 Each kernel's line in the JSON summary carries ``bound_ms``, the least time
 the card could take for the same work: the larger of its bytes (each input
@@ -123,7 +130,7 @@ The line before the last is the kernels' JSON summary; the last line is
 
 ``--profile`` adds, after phase 6, the host split and the device time by
 kernel of warm searches under ``"popc"`` and ``"auto"`` at Q=512 and under
-``"auto"`` at Q=1.
+``"auto"`` at Q=32 and Q=1.
 
 Usage: ``python3 chip_smoke.py [--seed N] [--profile]``
 """
@@ -149,7 +156,7 @@ import torch
 from iscc_search_tpu_torch import codec as ic
 from iscc_search_tpu_torch import schema
 from iscc_search_tpu_torch.engine import DeviceNphdIndex
-from iscc_search_tpu_torch.engine import simprint_ops
+from iscc_search_tpu_torch.engine import device_index, simprint_ops
 from iscc_search_tpu_torch.engine.simprint import SimprintEngine
 from iscc_search_tpu_torch.engine.device_index import _cap_rows, _pow2ceil, auto_phase1
 from iscc_search_tpu_torch.experiments import exp_bitplane_int8 as ex10
@@ -203,8 +210,15 @@ KERNELS = {
         "replaces": "iscc_search_tpu/ops/pallas_scan.py:102",
         "also_replaces": ["iscc_search_tpu/ops/pallas_scan.py:372"],
     },
+    "blockmax_small": {  # what kernels 1-2 compute, for small batches
+        "source": "iscc_search_tpu_torch/csrc/blockmax_small.cu",
+        "replaces": "iscc_search_tpu/ops/pallas_scan.py:310",
+        "also_replaces": ["iscc_search_tpu/ops/pallas_scan.py:410"],
+    },
 }
-PHASE1 = ("blockmax", "blockmax_mma_unpacked", "blockmax_mma_packed")
+PHASE1 = ("blockmax", "blockmax_mma_unpacked", "blockmax_mma_packed", "blockmax_small")
+ROUTE_KERNELS = {"popc": "blockmax", "mma_small": "blockmax_small", "mma": "blockmax_mma_packed"}  # scan_kernel -> wrapper
+SMALL_Q = 32  # the batch at which [kernels] times blockmax_small (its range; the others at Q=512)
 EXPERIMENT_KERNELS = {  # TPU kernels 8-11, reached through iscc_search_tpu_torch.experiments
     "blockmax_variant": {
         "source": "iscc_search_tpu_torch/csrc/blockmax_variants.cu",
@@ -247,7 +261,7 @@ PRODUCT_CPU_ASSETS = 1000  # the copy opened with device="cpu"
 PRODUCT_REPS = 7  # single requests per query shape
 PRODUCT_CLIENTS, PRODUCT_PER_CLIENT = 8, 8
 PRODUCT_T0 = 1_700_000_000_000_000  # ISCC-ID timestamps (microseconds) of the product assets
-PATH_KERNELS = ("blockmax", "blockmax_mma_packed", "gather_rescore")  # what a search launches
+PATH_KERNELS = ("blockmax", "blockmax_mma_packed", "blockmax_small", "gather_rescore")  # what a search launches
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_S = 1979e12
 POPC_PER_CLOCK_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
@@ -271,6 +285,14 @@ def bound(nbytes, ops, ops_per_s):
     and the operations over their peak rate."""
     t_bytes, t_ops = nbytes / HBM_BYTES_S * 1e3, ops / ops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase1_work(cap, lanes, nq):
+    """(bytes, operations) of phase 1 over one packed partition: the rows and
+    their validity read once, the queries (words, prefix lanes, scale) read
+    once, the (nq, cap / 128) f32 maxima written once; two operations per ±1
+    product of every (query, row) dot."""
+    return cap * lanes * 4 + cap + nq * (lanes * 4 + 8) + nq * (cap // 128) * 4, nq * cap * 2 * lanes * 32
 
 
 def variant_bound(name, n, nq):
@@ -359,15 +381,17 @@ def _compare(name, got, want, err):
 
 
 def _phase1_outputs(q_packed, min_lanes, q_scale, db, valid, twin):
-    """The three phase-1 kernels and the two plain versions on one input."""
+    """The four phase-1 kernels and the two plain versions on one input."""
     args = (q_packed, min_lanes, q_scale)
     return {
         "blockmax": lambda: hs.blockmax(*args, db, valid),
         "blockmax_mma_unpacked": lambda: hs.blockmax_mma_unpacked(*args, twin, valid),
         "blockmax_mma_packed": lambda: hs.blockmax_mma_packed(*args, db, valid),
+        "blockmax_small": lambda: hs.blockmax_small(*args, db, valid),
         "blockmax_plain": lambda: hs.blockmax_plain(*args, db, valid),
         "blockmax_mma_unpacked_plain": lambda: hs.blockmax_unpacked_plain(*args, twin, valid),
         "blockmax_mma_packed_plain": lambda: hs.blockmax_plain(*args, db, valid),
+        "blockmax_small_plain": lambda: hs.blockmax_plain(*args, db, valid),
     }
 
 
@@ -405,7 +429,7 @@ def phase_kernels(rng, dev, part_rows):
         _compare(f"gather_rescore {nbits}-bit edge", gr,
                  hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db), err)
     log("[kernels] edge cases: kernel == plain for 64/128/192/256-bit (Q=77, tombstones, dead block); "
-        "blockmax_mma_unpacked == blockmax_mma_packed == blockmax")
+        "blockmax_mma_unpacked == blockmax_mma_packed == blockmax_small == blockmax")
 
     # Main-path shapes: the capacities of the config-3 partitions, Q=512, kk=16.
     ms = dict.fromkeys(KERNELS, 0.0)
@@ -425,7 +449,15 @@ def phase_kernels(rng, dev, part_rows):
         calls["gather_rescore_plain"] = lambda: hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
         _compare_phase1(f"{nbits}-bit main", calls, err)
         _compare(f"gather_rescore {nbits}-bit main", calls["gather_rescore"](), calls["gather_rescore_plain"](), err)
-        t = {name: time_ms(calls[name], dev, 10) for name in PHASE1}
+        # blockmax_small at a batch in its range (the others at Q=512): the
+        # first SMALL_Q queries, against plain and the popc kernel.
+        small = _phase1_outputs(q_packed[:SMALL_Q], min_lanes[:SMALL_Q], q_scale[:SMALL_Q], db, valid, twin)
+        got = small["blockmax_small"]()
+        _compare(f"blockmax_small {nbits}-bit Q={SMALL_Q}", got, small["blockmax_small_plain"](), err)
+        _compare(f"blockmax_small {nbits}-bit Q={SMALL_Q} vs blockmax", got, small["blockmax"](), err)
+        calls["blockmax_small"], calls["blockmax_small_plain"] = small["blockmax_small"], small["blockmax_small_plain"]
+        t = {name: time_ms(calls[name], dev, 10) for name in PHASE1 if name != "blockmax_small"}
+        t["blockmax_small"] = time_ms(calls["blockmax_small"], dev, 20, graph=True)  # shorter than its wrapper
         t["gather_rescore"] = time_ms(calls["gather_rescore"], dev, 20, graph=True)  # the device's clock
         gather_host_ms += time_ms(calls["gather_rescore"], dev, 20)
         t.update({f"{name}_plain": time_ms(calls[f"{name}_plain"], dev, 5 if name == "gather_rescore" else 3) for name in KERNELS})
@@ -435,12 +467,13 @@ def phase_kernels(rng, dev, part_rows):
         # Bytes each input read once and each output written once; operations
         # of the function: two per ±1 product of a (query, row) dot, at the
         # int8 rate for every phase-1 kernel, whatever unit it runs them on.
-        q_bytes = N_QUERIES * (lanes * 4 + 12)
-        out_bytes = N_QUERIES * (cap // 128) * 4
-        for name, db_bytes in (("blockmax", cap * lanes * 4), ("blockmax_mma_packed", cap * lanes * 4),
-                               ("blockmax_mma_unpacked", cap * nbits)):
-            work[name][0] += db_bytes + cap + q_bytes + out_bytes
-            work[name][1] += N_QUERIES * cap * 2 * nbits
+        q_bytes = N_QUERIES * (lanes * 4 + 8)
+        for name, nq, extra in (("blockmax", N_QUERIES, 0), ("blockmax_mma_packed", N_QUERIES, 0),
+                                ("blockmax_mma_unpacked", N_QUERIES, cap * (nbits - lanes * 4)),  # the twin's bytes
+                                ("blockmax_small", SMALL_Q, 0)):
+            nbytes, ops = phase1_work(cap, lanes, nq)
+            work[name][0] += nbytes + extra
+            work[name][1] += ops
         popc_ops += N_QUERIES * cap * lanes
         blocks = int(torch.unique(block_ids).numel())
         work["gather_rescore"][0] += blocks * 128 * lanes * 4 + block_ids.numel() * 4 + q_bytes + block_ids.numel() * 512
@@ -460,7 +493,9 @@ def phase_kernels(rng, dev, part_rows):
             # Not the function's bound: the ceiling of XOR + popc as an implementation.
             stats[name]["popc_ceiling_ms"] = popc_ops / popc_per_s() * 1e3
             log(f"[kernels] blockmax: the ceiling of its popc count is {stats[name]['popc_ceiling_ms']:.4f} ms ({popc_ops:.4g} popc)")
-        log(f"[kernels] {name}: {ms[name]:.4f} ms per Q={N_QUERIES} sweep of all partitions "
+        if name == "blockmax_small":
+            stats[name]["q"] = SMALL_Q
+        log(f"[kernels] {name}: {ms[name]:.4f} ms per Q={SMALL_Q if name == 'blockmax_small' else N_QUERIES} sweep of all partitions "
             f"(plain {plain_ms[name]:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: {work[name][0]:.4g} bytes, "
             f"{work[name][1]:.4g} ops), max |kernel - plain| = {err[name]}")
     return stats
@@ -548,17 +583,17 @@ def phase_slice(rng, dev, codes, lanes, path):
     q_rows[-8:] = n + np.arange(8) * (N_APPEND // 8)  # some queries are appended rows
     queries = bodies_of(all_codes[q_rows], all_lanes[q_rows])
 
-    for fn in hs.PHASE1.values():
-        fn.launches = 0
-    hs.gather_rescore.launches = 0
-    t0 = time.perf_counter()
-    res = idx.search(queries, K)  # incremental sync: appends + fresh validity
-    sync_s = time.perf_counter() - t0
-    res, times = warm_searches(idx, queries)
-    # scan_kernel="auto" at Q=512: phase 1 on the tensor cores, no popc launch.
-    launches = {"blockmax_mma_packed": hs.blockmax_mma_packed.launches, "gather_rescore": hs.gather_rescore.launches}
-    if hs.blockmax.launches:
-        raise AssertionError(f"scan_kernel='auto' launched blockmax {hs.blockmax.launches} times at Q={N_QUERIES}")
+    reset_launches()
+    scans, stop = spy_routes()
+    try:
+        t0 = time.perf_counter()
+        res = idx.search(queries, K)  # incremental sync: appends + fresh validity
+        sync_s = time.perf_counter() - t0
+        res, times = warm_searches(idx, queries)
+    finally:
+        stop()
+    # scan_kernel="auto" at Q=512: the phase-1 kernels auto_phase1 names, and no other.
+    launches = check_path_launches("[slice]", dev, read_launches(), scans)
     med = statistics.median(times)
     log(f"[slice] search after remove+add (incremental sync + search): {sync_s:.4f} s")
     log(f"[slice] warm search Q={N_QUERIES} k={K}: median {med * 1e3:.3f} ms of {len(times)} "
@@ -566,9 +601,6 @@ def phase_slice(rng, dev, codes, lanes, path):
     log(f"[slice] device memory: allocated {torch.cuda.memory_allocated() / 2**30:.3f} GiB, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
     log(f"[slice] kernel launches during the searches: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            raise AssertionError(f"the search never launched the {name} kernel")
 
     # Brute force over the whole database on the card (key == row here).
     valid = np.ones(len(all_lanes), bool)
@@ -646,51 +678,57 @@ def phase_twin(dev, idx, queries):
 
 
 def phase_route(dev, idx, queries, oracle):
-    """Phase 1 by batch size on the engine's own partitions: both kernels at
-    every Q of ``ROUTE_QS`` (CUDA-graph replays, ``torch.equal`` at every
-    point), the crossover per lane count beside what ``auto_phase1`` picks,
-    then warm searches at Q=1 and Q=512 under each ``scan_kernel`` with the
-    exactness check, and the launches of the ``"auto"`` searches."""
+    """Phase 1 by batch size on the engine's own partitions: the three
+    kernels at every Q of ``ROUTE_QS`` (CUDA-graph replays, ``torch.equal``
+    to ``blockmax`` at every point), the fastest per lane count beside what
+    ``auto_phase1`` picks, then warm searches at Q=512, ``SMALL_Q`` and 1
+    under each ``scan_kernel`` with the exactness check, and the launches of
+    the ``"auto"`` searches. Returns (launches, table: (lanes, Q) ->
+    {scan_kernel: ms}, capacities by lane count)."""
     parts = idx._sync_device()
     q_codes, q_lanes = pack_codes(queries)
     reps_q = -(-max(ROUTE_QS) // len(queries))
     q_all = torch.from_numpy(np.tile(q_codes, (reps_q, 1)).view(np.int32)).to(dev)
     l_all = torch.from_numpy(np.tile(q_lanes, reps_q)).to(dev)
-    table = {}  # (lanes, Q) -> (popc ms, mma ms)
+    kernels = tuple(ROUTE_KERNELS)
+    table = {}  # (lanes, Q) -> {scan_kernel: ms}
     for lanes, p in sorted(parts.items()):
         for nq in ROUTE_QS:
             q_packed = q_all[:nq].contiguous()
             min_lanes, q_scale = query_prefix(l_all[:nq].contiguous(), lanes * 32)
             args = (q_packed, min_lanes, q_scale, p.packed_dev, p.valid_dev)
-            if not torch.equal(hs.blockmax(*args), hs.blockmax_mma_packed(*args)):
-                raise AssertionError(f"{lanes * 32}-bit partition, Q={nq}: blockmax_mma_packed differs from blockmax")
+            popc = hs.blockmax(*args)
+            for kernel in kernels[1:]:
+                if not torch.equal(getattr(hs, ROUTE_KERNELS[kernel])(*args), popc):
+                    raise AssertionError(f"{lanes * 32}-bit partition, Q={nq}: {ROUTE_KERNELS[kernel]} differs from blockmax")
             reps = 20 if nq <= 64 else 5
-            table[lanes, nq] = tuple(
-                time_ms(functools.partial(fn, *args), dev, reps, graph=True) for fn in (hs.blockmax, hs.blockmax_mma_packed)
-            )
-    log(f"[route] phase 1 per partition, ms by the device's clock (CUDA-graph replays), popc / mma, "
-        f"blockmax_mma_packed == blockmax at all {len(table)} points; capacities "
-        f"{ {lanes: p.cap for lanes, p in sorted(parts.items())} }")
-    log("[route]     Q  " + "  ".join(f"{lanes * 32:>4d}-bit popc    mma" for lanes in sorted(parts)) + "   all: popc     mma    auto")
+            table[lanes, nq] = {
+                kernel: time_ms(functools.partial(getattr(hs, ROUTE_KERNELS[kernel]), *args), dev, reps, graph=True)
+                for kernel in kernels
+            }
+    caps = {lanes: p.cap for lanes, p in sorted(parts.items())}
+    log(f"[route] phase 1 per partition, ms by the device's clock (CUDA-graph replays), popc / mma_small / mma "
+        f"(blockmax / blockmax_small / blockmax_mma_packed), both tensor-core kernels == blockmax at all "
+        f"{len(table)} points; capacities {caps}")
+    log("[route]     Q  " + "  ".join(f"{lanes * 32:>4d}-bit popc  small    mma" for lanes in sorted(parts))
+        + "   all: popc   small     mma    auto")
     for nq in ROUTE_QS:
         cells = [table[lanes, nq] for lanes in sorted(parts)]
-        auto_ms = sum(table[lanes, nq][auto_phase1(nq, lanes) == "mma"] for lanes in parts)
-        log(f"[route] {nq:5d}  " + "  ".join(f"{a:13.4f} {b:6.4f}" for a, b in cells)
-            + f"   {sum(a for a, _ in cells):9.4f} {sum(b for _, b in cells):7.4f} {auto_ms:7.4f}")
+        total = {kernel: sum(c[kernel] for c in cells) for kernel in kernels}
+        auto_ms = sum(table[lanes, nq][auto_phase1(nq, lanes)] for lanes in parts)
+        log(f"[route] {nq:5d}  " + "  ".join(f"{c['popc']:13.4f} {c['mma_small']:6.4f} {c['mma']:6.4f}" for c in cells)
+            + f"   {total['popc']:9.4f} {total['mma_small']:7.4f} {total['mma']:7.4f} {auto_ms:7.4f}")
     for lanes in sorted(parts):
-        wins = [nq for nq in ROUTE_QS if table[lanes, nq][1] < table[lanes, nq][0]]
-        cross = next((nq for nq in ROUTE_QS if all(m in wins for m in ROUTE_QS if m >= nq)), None)
-        picks = [nq for nq in ROUTE_QS if auto_phase1(nq, lanes) == "mma"]
-        log(f"[route] {lanes * 32}-bit: the wgmma kernel is faster at Q in {wins}"
-            + (f", at every measured Q from {cross}" if cross else ", and loses at the largest measured Q")
-            + f"; 'auto' takes it from Q={min(picks) if picks else None}")
+        fastest = {nq: min(kernels, key=table[lanes, nq].get) for nq in ROUTE_QS}
+        log(f"[route] {lanes * 32}-bit: fastest " + ", ".join(f"Q={nq} {k}" for nq, k in fastest.items())
+            + "; 'auto' takes " + ", ".join(f"Q={nq} {auto_phase1(nq, lanes)}" for nq in ROUTE_QS))
         for nq in ROUTE_QS:
-            popc_ms, mma_ms = table[lanes, nq]
-            took = mma_ms if auto_phase1(nq, lanes) == "mma" else popc_ms
-            if took > AUTO_SLACK * min(popc_ms, mma_ms):
+            took = table[lanes, nq][auto_phase1(nq, lanes)]
+            best = table[lanes, nq][fastest[nq]]
+            if took > AUTO_SLACK * best:
                 raise AssertionError(
                     f"{lanes * 32}-bit, Q={nq}: 'auto' takes {auto_phase1(nq, lanes)} at {took:.4f} ms, "
-                    f"more than {AUTO_SLACK}x the other kernel's {min(popc_ms, mma_ms):.4f} ms: the table in "
+                    f"more than {AUTO_SLACK}x the fastest ({fastest[nq]}, {best:.4f} ms): the table in "
                     "engine/device_index.py is out of date"
                 )
 
@@ -699,14 +737,15 @@ def phase_route(dev, idx, queries, oracle):
     # that the host clock's drift shows as spread between a kernel's rounds
     # and not as a difference between kernels. Exactness checked every time.
     q_keys, valid, ref_np, top_ref, sample = oracle
-    kernels = ("popc", "mma", "auto")
-    launches = dict.fromkeys(("blockmax", "blockmax_mma_packed"), 0)  # of the 'auto' searches, both batch sizes
-    for nq in (N_QUERIES, 1):
-        times = {kernel: [] for kernel in kernels}
-        rounds = {kernel: [] for kernel in kernels}
+    scan_kernels = (*kernels, "auto")
+    launches = dict.fromkeys(ROUTE_KERNELS.values(), 0)  # of the 'auto' searches, every batch size
+    picked = set()  # the phase-1 kernels 'auto' names at these batch sizes
+    for nq in (N_QUERIES, SMALL_Q, 1):
+        times = {kernel: [] for kernel in scan_kernels}
+        rounds = {kernel: [] for kernel in scan_kernels}
         want_res = None  # the first round's 'popc' results
         for rnd in range(ROUTE_ROUNDS):
-            for kernel in kernels if rnd % 2 == 0 else kernels[::-1]:
+            for kernel in scan_kernels if rnd % 2 == 0 else scan_kernels[::-1]:
                 idx.scan_kernel = kernel
                 for fn in hs.PHASE1.values():
                     fn.launches = 0
@@ -719,6 +758,7 @@ def phase_route(dev, idx, queries, oracle):
                 if counts != want:
                     raise AssertionError(f"scan_kernel={kernel!r} Q={nq}: phase-1 launches per search {counts}, expected {want}")
                 if kernel == "auto":
+                    picked |= {ROUTE_KERNELS[auto_phase1(nq, lanes)] for lanes in parts}
                     for name in launches:
                         launches[name] += getattr(hs, name).launches
                 check_results(f"[route] {kernel} Q={nq}", res, q_keys[:nq], valid, ref_np, top_ref, sample[sample < nq])
@@ -727,15 +767,32 @@ def phase_route(dev, idx, queries, oracle):
                     raise AssertionError(f"scan_kernel={kernel!r} Q={nq}: results differ from scan_kernel='popc'")
                 times[kernel] += t
                 rounds[kernel].append(statistics.median(t) * 1e3)
-        for kernel in kernels:
+        for kernel in scan_kernels:
             log(f"[route] scan_kernel={kernel!r} Q={nq} k={K}: warm search median {statistics.median(times[kernel]) * 1e3:.3f} ms "
                 f"of {len(times[kernel])} (min {min(times[kernel]) * 1e3:.3f}, max {max(times[kernel]) * 1e3:.3f}; medians of the "
                 f"{ROUTE_ROUNDS} rounds " + ", ".join(f"{m:.3f}" for m in rounds[kernel]) + "); exact (brute force), equal to 'popc'")
     idx.scan_kernel = "auto"
-    if min(launches.values()) <= 0:
-        raise AssertionError(f"the 'auto' searches did not launch both phase-1 kernels: {launches}")
-    log(f"[route] kernel launches of the 'auto' searches ({8 * ROUTE_ROUNDS} at Q=1, {8 * ROUTE_ROUNDS} at Q={N_QUERIES}): {launches}")
-    return launches
+    for name in ROUTE_KERNELS.values():
+        if (launches[name] > 0) != (name in picked):
+            raise AssertionError(f"the 'auto' searches launched {name} {launches[name]} times; 'auto' names {sorted(picked)}")
+    log(f"[route] kernel launches of the 'auto' searches ({8 * ROUTE_ROUNDS} each at Q={N_QUERIES}, {SMALL_Q} and 1): "
+        f"{launches}; 'auto' names {sorted(picked)} there")
+    return launches, table, caps
+
+
+def route_stats(table, caps, kernel):
+    """{Q: ms, bound and share} of one phase-1 kernel per config-3 sweep (all
+    four partitions) from the [route] table."""
+    out = {}
+    for nq in ROUTE_QS:
+        nbytes = ops = 0
+        for lanes, cap in caps.items():
+            b, o = phase1_work(cap, lanes, nq)
+            nbytes, ops = nbytes + b, ops + o
+        bound_ms, bound_by = bound(nbytes, ops, INT8_OPS_S)
+        ms = sum(table[lanes, nq][kernel] for lanes in caps)
+        out[nq] = {"ms": ms, "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms}
+    return out
 
 
 def _dir_bytes(path):
@@ -867,6 +924,41 @@ def phase_persist(rng, dev, idx3, queries3, tmp):
 def sync(dev):
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
+
+
+def spy_routes():
+    """Record (Q, lanes, phase1) of every partition scan the engine makes
+    (its call of ``blockmax_topk_packedq_impl``) until ``stop()`` is called.
+    Returns (the list of scans, stop)."""
+    seen = []
+    real = device_index.blockmax_topk_packedq_impl
+
+    def spy(*args, phase1, **kwargs):
+        seen.append((args[0].shape[0], args[5] // 32, phase1))
+        return real(*args, phase1=phase1, **kwargs)
+
+    def stop():
+        device_index.blockmax_topk_packedq_impl = real
+
+    device_index.blockmax_topk_packedq_impl = spy
+    return seen, stop
+
+
+def check_path_launches(label, dev, launches, scans):
+    """Raise unless every scan of ``scans`` (``spy_routes()``) took the phase-1
+    kernel ``auto_phase1`` names for its batch and width and, on a card, the
+    path launched each kernel so named and ``gather_rescore``, and no other
+    phase-1 kernel. Returns ``launches``."""
+    for nq, lanes, phase1 in scans:
+        if phase1 != auto_phase1(nq, lanes):
+            raise AssertionError(f"{label}: a Q={nq} scan of a {lanes * 32}-bit partition took {phase1!r}, "
+                                 f"'auto' names {auto_phase1(nq, lanes)!r}")
+    named = {hs.PHASE1[phase1].__name__ for _, _, phase1 in scans} | {"gather_rescore"}
+    if dev.type == "cuda":
+        for name in PATH_KERNELS:
+            if (launches[name] > 0) != (name in named):
+                raise AssertionError(f"{label}: {name} launched {launches[name]} times; the path's scans name {sorted(named)}")
+    return launches
 
 
 def reset_launches():
@@ -1074,6 +1166,7 @@ def phase_simprint(rng, dev, tmp, n_assets=C4_ASSETS, chunks=C4_CHUNKS, trials=C
                 )
 
     kwargs = dict(limit=C4_LIMIT, threshold=C4_THRESHOLD, detailed=True, doc_freq_fn=lambda sp: 1, total_assets=n_assets)
+    scans, stop = spy_routes()
     t0 = time.perf_counter()
     engine.search_raw_many([planted[0][: widths[0]]], **kwargs)
     sync(dev)
@@ -1118,13 +1211,10 @@ def phase_simprint(rng, dev, tmp, n_assets=C4_ASSETS, chunks=C4_CHUNKS, trials=C
         })
     finally:
         del engine._index.search
-    launches = read_launches()
-    log(f"[simprint] kernel launches of the path (first search and every timed search): {launches}; "
-        f"device memory {device_memory(dev)}")
-    if dev.type == "cuda":
-        for name in PATH_KERNELS:
-            if launches[name] <= 0:
-                raise AssertionError(f"the simprint path never launched {name}")
+        stop()
+    launches = check_path_launches("[simprint]", dev, read_launches(), scans)
+    log(f"[simprint] kernel launches of the path (first search and every timed search): {launches}, for sweeps of "
+        f"Q in {sorted({nq for nq, _, _ in scans})}; device memory {device_memory(dev)}")
     log(f"[simprint] every matched chunk's score == XOR + popcount on the host, every planted asset at rank 0 with "
         f"all its live chunks matched, every asset score == its recomputation from the chunks, no removed chunk returned")
     stats = simprint_kernel_stats(dev, engine, planted, widths, batches)
@@ -1134,15 +1224,16 @@ def phase_simprint(rng, dev, tmp, n_assets=C4_ASSETS, chunks=C4_CHUNKS, trials=C
 
 def simprint_kernel_stats(dev, engine, planted, widths, batches):
     """Each kernel of the simprint path against its plain version at the
-    path's shapes: the 128-bit partition, Q = the narrowest batch (the popc
-    kernel's traffic) and Q = 512 (one full sweep, the tensor cores'), and
-    ``gather_rescore`` of the count's top blocks."""
+    path's shapes: the 128-bit partition; the three phase-1 kernels at
+    Q = the narrowest and the widest query asset (10 and 100 chunks, one
+    asset's request), ``blockmax_mma_packed`` also at Q = 512 (one full
+    sweep), and ``gather_rescore`` of the count's top blocks."""
     part = engine._index._sync_device()[4]
     flat = [q for j in range(batches[-1]) for q in planted[j][: widths[-1]]][: SimprintEngine.max_sweep_queries]
     kk = candidate_blocks(C4_LIMIT * engine.oversampling_factor, part.cap)
-    return path_kernel_stats("[simprint]", dev, part, flat, {
-        "blockmax": (widths[0], None), "blockmax_mma_packed": (len(flat), None), "gather_rescore": (len(flat), kk),
-    })
+    shapes = [(name, nq, None) for nq in (widths[0], widths[-1]) for name in ROUTE_KERNELS.values()]
+    return path_kernel_stats("[simprint]", dev, part, flat,
+                             [*shapes, ("blockmax_mma_packed", len(flat), None), ("gather_rescore", len(flat), kk)])
 
 
 def candidate_blocks(count, cap):
@@ -1154,17 +1245,18 @@ def candidate_blocks(count, cap):
 
 def path_kernel_stats(label, dev, part, flat, shapes):
     """Kernels of a search path against their plain versions (``torch.equal``)
-    on the path's own partition ``part``, with their times. ``shapes`` maps a
-    kernel name to (Q, kk): the first Q of the chunk queries ``flat``, and
-    for ``gather_rescore`` the kk candidate blocks per query (the top-kk
-    blocks of the tensor-core phase 1)."""
+    on the path's own partition ``part``, with their times. ``shapes`` lists
+    (kernel name, Q, kk): the first Q of the chunk queries ``flat``, and for
+    ``gather_rescore`` the kk candidate blocks per query (the top-kk blocks
+    of the tensor-core phase 1). Returns {kernel name: [one dict per shape]}."""
     cap = part.cap
     nbits = part.packed_dev.shape[1] * 32
     q_codes, q_lanes = pack_codes(flat)
     q_all = torch.from_numpy(q_codes.view(np.int32)).to(dev)
     l_all = torch.from_numpy(q_lanes).to(dev)
+    plain_of = {}  # Q -> (plain phase-1 output, its ms): one plain run per batch
     stats = {}
-    for name, (nq, kk) in shapes.items():
+    for name, nq, kk in shapes:
         q_packed = q_all[:nq].contiguous()
         min_lanes, q_scale = query_prefix(l_all[:nq].contiguous(), nbits)
         args = (q_packed, min_lanes, q_scale, part.packed_dev, part.valid_dev)
@@ -1176,24 +1268,29 @@ def path_kernel_stats(label, dev, part, flat, shapes):
             row_bytes = nbits // 8
             nbytes = blocks * 128 * row_bytes + block_ids.numel() * 4 + nq * 28 + block_ids.numel() * 512
             work = bound(nbytes, block_ids.numel() * 128 * (nbits // 32), popc_per_s() if dev.type == "cuda" else 1e12)
+            want, plain_ms = plain(), time_ms(plain, dev, 1)
         else:
             run = functools.partial(getattr(hs, name), *args)
-            plain = functools.partial(hs.blockmax_plain, *args)
-            work = bound(cap * (nbits // 8) + cap + nq * 28 + nq * (cap // 128) * 4, nq * cap * 2 * nbits, INT8_OPS_S)
-        got, want = run(), plain()
+            work = bound(*phase1_work(cap, nbits // 32, nq), INT8_OPS_S)
+            if nq not in plain_of:
+                plain = functools.partial(hs.blockmax_plain, *args)
+                plain_of[nq] = (plain(), time_ms(plain, dev, 1))
+            want, plain_ms = plain_of[nq]
+        got = run()
         sync(dev)
         if not torch.equal(got, want):
             raise AssertionError(f"{label} {name} at Q={nq}: kernel != plain")
         err = float((got - want).abs().max())
-        del got, want
+        del got
         ms = time_ms(run, dev, 10 if dev.type == "cuda" else 1, graph=name == "gather_rescore")
-        plain_ms = time_ms(plain, dev, 1)
-        stats[name] = {"q": nq, "cap": cap, "ms": ms, "plain_ms": plain_ms, "bound_ms": work[0], "bound_by": work[1],
-                       "max_abs_err": err}
+        entry = {"q": nq, "cap": cap, "ms": ms, "plain_ms": plain_ms, "bound_ms": work[0], "bound_by": work[1],
+                 "max_abs_err": err}
         if kk is not None:
-            stats[name]["kk"] = kk
+            entry["kk"] = kk
+        stats.setdefault(name, []).append(entry)
         log(f"{label} {name} at the path's shape (cap {cap}, Q={nq}{f', kk={kk}' if kk is not None else ''}): "
-            f"kernel == plain; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {work[0]:.4f} ms by {work[1]})")
+            f"kernel == plain; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {work[0]:.4f} ms by {work[1]}, "
+            f"{100 * work[0] / ms:.0f}% of it)")
     return stats
 
 
@@ -1507,6 +1604,7 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
         for kind, limit, exact in cases:  # warm: the first search of each shape builds and uploads partitions
             checked(originals[0], kind, limit, exact)
         reset_launches()
+        scans, stop = spy_routes()  # every scan of the path's counted run, to its end
         counted = 0
         for kind, limit, exact in cases:
             times = []
@@ -1541,7 +1639,8 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
         }, reps=reps)
         counted += reps
     per_search = {name: n / counted for name, n in read_launches().items()}
-    log(f"[product] kernel launches per device search_assets call (mean of {counted}): {per_search}")
+    log(f"[product] kernel launches per device search_assets call (mean of {counted}): {per_search}, for scans of "
+        f"(Q, lanes) in {sorted({(nq, lanes) for nq, lanes, _ in scans})}")
 
     # Concurrent clients: the batcher fuses their sweeps; answers equal the sequential ones.
     work = [originals[1 + reps + j] for j in range(clients * per_client)]
@@ -1578,10 +1677,11 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
     kk = candidate_blocks(100 * 2 * index._opts.oversampling_factor, part.cap)
     step = max(1, hs.PHASE3_BUDGET_BYTES // (kk * hs.BLOCK * hs.PHASE3_ROW_BYTES))
     chunk_queries = [v.tobytes() for v in truth[originals[1]]["sp"]]
+    request_kernel = ROUTE_KERNELS[auto_phase1(len(chunk_queries), part.packed_dev.shape[1])]
     with uncounted():
-        stats = path_kernel_stats("[product]", dev, part, chunk_queries, {
-            "blockmax_mma_packed": (len(chunk_queries), None), "gather_rescore": (min(step, len(chunk_queries)), kk),
-        })
+        stats = path_kernel_stats("[product]", dev, part, chunk_queries, [
+            (request_kernel, len(chunk_queries), None), ("gather_rescore", min(step, len(chunk_queries)), kk),
+        ])
     del part
 
     # Durability: flush, close, reopen; the same answers.
@@ -1618,13 +1718,10 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
             compared += 1
     on_card.close()
     on_cpu.close()
-    launches = read_launches()
+    stop()
+    launches = check_path_launches("[product]", dev, read_launches(), scans)
     log(f"[product] {n_cpu}-asset copy opened with device='cpu': {compared} answers model_dump()-identical to the card's")
     log(f"[product] kernel launches of the path: {launches}")
-    if dev.type == "cuda":
-        for name in PATH_KERNELS:
-            if launches[name] <= 0:
-                raise AssertionError(f"the product path never launched {name}")
     return launches, stats
 
 
@@ -1871,16 +1968,21 @@ def main():
     log(f"[data] {N_ROWS} codes, rows per lane count: {part_rows}")
     stats = phase_kernels(rng, dev, part_rows)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches, idx, queries, oracle = phase_slice(rng, dev, codes, lanes, Path(tmp) / "config3")
+        slice_launches, idx, queries, oracle = phase_slice(rng, dev, codes, lanes, Path(tmp) / "config3")
         del codes, lanes
-        launches.update(phase_twin(dev, idx, queries))
-        launches.update(phase_route(dev, idx, queries, oracle))
+        twin_launches = phase_twin(dev, idx, queries)
+        route_launches, route_table, caps = phase_route(dev, idx, queries, oracle)
         if args.profile:
-            for scan_kernel, batch in (("popc", queries), ("auto", queries), ("auto", queries[:1])):
+            for scan_kernel, batch in (("popc", queries), ("auto", queries), ("auto", queries[:SMALL_Q]),
+                                       ("auto", queries[:1])):
                 phase_profile(idx, batch, scan_kernel)
         phase_persist(rng, dev, idx, queries, tmp)
         del idx, oracle
-    by_path = {"config3": {name: launches[name] for name in PATH_KERNELS}}
+    # The config-3 path: the slice's searches and the [route] phase's 'auto' searches.
+    by_path = {"config3": {name: slice_launches[name] + route_launches.get(name, 0) for name in PATH_KERNELS}}
+    launches = {**by_path["config3"], "blockmax_mma_unpacked": twin_launches["blockmax_mma_unpacked"]}
+    for kernel, name in ROUTE_KERNELS.items():
+        stats[name]["by_q"] = route_stats(route_table, caps, kernel)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
         by_path["simprint"], path_stats = phase_simprint(rng, dev, tmp)

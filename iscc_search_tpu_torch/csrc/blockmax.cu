@@ -29,8 +29,13 @@
 // What bounds it on an H100: integer issue, not memory. Each (query, row)
 // pair costs `lanes` XOR/AND/POPC triples; POPC issues at 16 per clock per
 // SM, so at 10.5M mixed-length rows and Q=512 the popcounts alone are
-// ~3e10 operations (~8 ms), while the packed database is only ~0.3 GB. A
-// later kernel moves the dot onto the tensor cores (int8 or b1 MMA).
+// ~3e10 operations (~8 ms), while the packed database is only ~0.3 GB. Its
+// time grows with Q from the byte bound at Q=1 (86% of it on config 3), so
+// the engine's scan_kernel="auto" keeps it for batches below 8 queries only:
+// blockmax_small.cu (int8 tensor cores, rows unpacked in registers) takes 8
+// to 128 queries and blockmax_mma.cu (wgmma) larger batches, the same
+// function bit for bit (engine/device_index.py, auto_phase1; PERF.md,
+// section 6).
 
 #include <cuda_runtime.h>
 #include <stdint.h>

@@ -15,11 +15,13 @@ fixed-width index over 16-byte keys.
 - Search runs, per partition, the exact two-phase scan of
   :mod:`iscc_search_tpu_torch.ops.hopper_scan` (phase-1 block-max kernel,
   hierarchical top-k blocks, phase-3 gather-rescore kernel, final top-k),
-  then merges the partitions' candidates on the host. Phase 1 has two
-  kernels that return the same block maxima bit for bit, XOR + popc and the
-  int8 tensor cores (``wgmma``); ``scan_kernel`` forces one (``"popc"``,
-  ``"mma"``) or, as ``"auto"``, takes per partition the one that
-  :func:`auto_phase1` names for the batch size and the partition's width.
+  then merges the partitions' candidates on the host. Phase 1 has three
+  kernels that return the same block maxima bit for bit: XOR + popc, the
+  int8 tensor cores through ``mma.sync`` for small batches and through
+  ``wgmma`` for large ones; ``scan_kernel`` forces one (``"popc"``,
+  ``"mma_small"``, ``"mma"``) or, as ``"auto"``, takes per partition the one
+  that :func:`auto_phase1` names for the batch size and the partition's
+  width.
 - Persistence is the JAX engine's, file for file: sealed immutable segments
   of ``shard_size`` bytes (``seg-%08d.npz``, written once), a rewritable
   active segment and a validity bitmap under a fresh name on every save
@@ -61,7 +63,7 @@ logger = logging.getLogger(__name__)
 _TODO_PARALLEL = "ROADMAP.md, 'Modules still to port': parallel/* on torch.distributed"
 _TODO_KNOBS = "ROADMAP.md, 'Modules still to port': knobs"
 
-SCAN_KERNELS = ("auto", "mma", "popc")
+SCAN_KERNELS = ("auto", "mma", "mma_small", "popc")
 
 # Row-space generations are unique across instances, as in the JAX engine.
 _ROW_GEN_COUNTER = itertools.count(1)
@@ -96,13 +98,17 @@ def _to_device(array, device):
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
-# scan_kernel="auto": the smallest batch for which phase 1 of a partition
-# goes to the tensor-core kernel, by the partition's lane count. Below it the
-# XOR + popc kernel wins: its time falls with the batch, while the tensor-core
-# kernel pays a fixed price per 128-row block for any batch up to 128
-# queries. Taken from the [route] table of chip_smoke.py (NVIDIA H100 80GB
-# HBM3, 700.00 W; PERF.md section 6), which fails when the table goes stale.
-_AUTO_MMA_MIN_Q = {2: 48, 4: 48, 6: 32, 8: 32}
+# scan_kernel="auto", by the partition's lane count: (the smallest batch for
+# which phase 1 goes to the small-batch kernel, the smallest for which it
+# goes to the wgmma kernel of blockmax_mma.cu). Below the first the XOR +
+# popc kernel wins: it is linear in the batch from the byte bound at Q=1,
+# while the small-batch kernel pays its unpack per row word whatever the
+# batch. Above 128 queries the small-batch kernel reads the rows once per
+# 128-query chunk, and the wgmma kernel, flat up to 128 queries and
+# staging the rows once for up to 512, wins. Taken from the [route] table of
+# chip_smoke.py (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section 6), which
+# fails when the table goes stale.
+_AUTO_ROUTE = {2: (8, 129), 4: (8, 129), 6: (8, 129), 8: (8, 129)}
 
 
 def resolve_device(device):
@@ -118,10 +124,12 @@ def resolve_device(device):
 def auto_phase1(nq, lanes):
     # type: (int, int) -> str
     """The phase-1 kernel ``scan_kernel="auto"`` takes for a batch of ``nq``
-    queries on a partition of ``lanes`` lanes: ``"mma"`` or ``"popc"``
-    (keys of ``hopper_scan.PHASE1``). An odd lane count reads the next even
-    one's entry, the nearest measured width that does no less work."""
-    return "mma" if nq >= _AUTO_MMA_MIN_Q[min(MAX_LANES, lanes + lanes % 2)] else "popc"
+    queries on a partition of ``lanes`` lanes: ``"popc"``, ``"mma_small"``
+    or ``"mma"`` (keys of ``hopper_scan.PHASE1``). An odd lane count reads
+    the next even one's entry, the nearest measured width that does no less
+    work."""
+    small_from, mma_from = _AUTO_ROUTE[min(MAX_LANES, lanes + lanes % 2)]
+    return "mma" if nq >= mma_from else "mma_small" if nq >= small_from else "popc"
 
 
 def _fsync_dir(path):
@@ -222,9 +230,10 @@ class PackedCodeIndex:
         :param recall_target: accepted for API parity and served EXACTLY —
             exact results meet any recall target; ``>= 1.0`` becomes None
         :param scan_kernel: the phase-1 kernel on CUDA: "popc" (XOR + popc),
-            "mma" (int8 tensor cores) or "auto" (per partition and batch,
-            :func:`auto_phase1`); the results are the same. On the CPU every
-            value runs the plain version.
+            "mma_small" (int8 tensor cores, ``mma.sync``, small batches),
+            "mma" (int8 tensor cores, ``wgmma``) or "auto" (per partition and
+            batch, :func:`auto_phase1`); the results are the same. On the CPU
+            every value runs the plain version.
         :param mesh: must be None (single device)
         :param device: torch device of the partitions, "cuda" by default;
             nothing is auto-detected, and "cuda" without a card raises

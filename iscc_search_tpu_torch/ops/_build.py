@@ -48,18 +48,19 @@ _lock = threading.Lock()
 _lib = None  # the loaded library, once per process
 
 
-def sources():
-    # type: () -> list[Path]
-    """The kernel sources (``*.cu``), sorted."""
-    return sorted(CSRC_DIR.glob("*.cu"))
+def sources(names=None):
+    # type: (tuple[str, ...] | None) -> list[Path]
+    """The kernel sources (``*.cu``), sorted; only those named in ``names``
+    if given."""
+    return sorted(p for p in CSRC_DIR.glob("*.cu") if names is None or p.name in names)
 
 
-def build_key(defines=()):
-    # type: (tuple[str, ...]) -> str
-    """Hash of the flags, the ``-D`` defines and every source's and header's
-    name and bytes."""
+def build_key(defines=(), names=None):
+    # type: (tuple[str, ...], tuple[str, ...] | None) -> str
+    """Hash of the flags, the ``-D`` defines and every source's (of
+    ``names``, if given) and header's name and bytes."""
     h = hashlib.sha256(" ".join((*NVCC_FLAGS, *defines)).encode())
-    for path in sources() + sorted(CSRC_DIR.glob("*.cuh")):
+    for path in sources(names) + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(path.name.encode())
         h.update(path.read_bytes())
     return h.hexdigest()[:16]
@@ -80,8 +81,8 @@ def nvcc_path():
     )
 
 
-def build(defines=()):
-    # type: (tuple[str, ...]) -> Path
+def build(defines=(), names=None):
+    # type: (tuple[str, ...], tuple[str, ...] | None) -> Path
     """Compile the kernels unless a library with the current key exists.
 
     Concurrent builders (several processes at first use) each compile into
@@ -90,9 +91,11 @@ def build(defines=()):
 
     :param defines: ``NAME=value`` macros for a library apart from the
         port's own (``library()`` builds with none), under a key of its own
+    :param names: build only these sources (file names), for a library
+        apart from the port's own (a timing experiment's)
     :return: path of the shared library
     """
-    out_dir = BUILD_ROOT / build_key(defines)
+    out_dir = BUILD_ROOT / build_key(defines, names)
     lib_path = out_dir / LIB_NAME
     if lib_path.is_file():
         return lib_path
@@ -100,7 +103,7 @@ def build(defines=()):
     flags = (*NVCC_FLAGS, *(f"-D{d}" for d in defines))
     out_dir.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=str(out_dir), prefix="tmp") as tmp:
-        objects = {src: str(Path(tmp) / f"{src.stem}.o") for src in sources()}
+        objects = {src: str(Path(tmp) / f"{src.stem}.o") for src in sources(names)}
         compile_cmds = [[nvcc, *flags, "-c", "-o", obj, str(src)] for src, obj in objects.items()]
         link_cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(Path(tmp) / LIB_NAME), *objects.values()]
         log = []

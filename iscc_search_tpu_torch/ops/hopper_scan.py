@@ -12,11 +12,17 @@ hand-written Hopper kernels (port of the Pallas path of
 - :func:`blockmax_mma_packed` (the same kernel, rows unpacked from the
   packed partition inside it) replaces ``_scan_kernel_packed`` and
   ``_scan_kernel_packed_perm``.
+- :func:`blockmax_small` (phase 1 for small batches on the int8 tensor
+  cores, each row's bits unpacked in registers into the A operand of
+  ``mma.sync`` up to 32 queries and of ``wgmma`` above, rows streamed by TMA
+  bulk copies, ``csrc/blockmax_small.cu``; its fragment maps are mirrored in
+  ``ops/small_layout.py``) computes what :func:`blockmax` computes, and so
+  replaces the same two Pallas kernels where the batch is small.
 - :func:`gather_rescore` (phase 3, ``csrc/gather_rescore.cu``) replaces
   ``_gather_rescore_kernel`` and ``_gather_rescore_packed_kernel``: it reads
   the packed rows, and returns the candidates in row order.
 
-The three phase-1 wrappers compute one function, bit for bit, and
+The four phase-1 wrappers compute one function, bit for bit, and
 :func:`blockmax_topk_impl` takes any of them by name (``phase1``, a key of
 :data:`PHASE1`); which one is fastest depends on the batch and the width,
 and the engine chooses (``scan_kernel`` of ``engine/device_index.py``). The packed
@@ -66,6 +72,7 @@ _SIGNATURES = {
     "iscc_blockmax": _PHASE1,
     "iscc_blockmax_mma_unpacked": _PHASE1,
     "iscc_blockmax_mma_packed": _PHASE1,
+    "iscc_blockmax_small": _PHASE1,
     # q, q_stride, min_lanes, block_ids, nq, kk, db, lanes, out, stream
     "iscc_gather_rescore": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _P),
     # The phase-1 experiments (iscc_search_tpu_torch/experiments):
@@ -192,7 +199,8 @@ def _blockmax_rows_plain(q_packed, min_lanes, q_scale, valid, nbits, rows_pm1):
 def blockmax_plain(q_packed, min_lanes, q_scale, db, valid):
     # type: (...) -> torch.Tensor
     """Plain PyTorch phase 1 from the packed rows (unpacked to ±1 f32), the
-    plain version of :func:`blockmax` and :func:`blockmax_mma_packed`."""
+    plain version of :func:`blockmax`, :func:`blockmax_mma_packed` and
+    :func:`blockmax_small`."""
     nbits = db.shape[1] * 32
     return _blockmax_rows_plain(q_packed, min_lanes, q_scale, valid, nbits, lambda s, e: unpack_pm1(db[s:e], nbits))
 
@@ -261,6 +269,21 @@ def blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid):
 blockmax_mma_packed.launches = 0
 
 
+def blockmax_small(q_packed, min_lanes, q_scale, db, valid):
+    # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor) -> torch.Tensor
+    """:func:`blockmax` on the int8 tensor cores for small batches (A from
+    registers, chunks of up to 128 queries). Same arguments, same result
+    bit for bit; on CUDA, ``db`` and ``valid`` must be 16-byte aligned (the
+    kernel copies whole blocks with the TMA)."""
+    _, lanes = _check_db(db)
+    if db.is_cuda and (db.data_ptr() % 16 or valid.data_ptr() % 16):
+        raise ValueError("blockmax_small copies whole blocks with the TMA: db and valid must be 16-byte aligned")
+    return _phase1(blockmax_small, "iscc_blockmax_small", blockmax_plain, q_packed, min_lanes, q_scale, db, valid, lanes)
+
+
+blockmax_small.launches = 0
+
+
 def blockmax_mma_unpacked(q_packed, min_lanes, q_scale, db_unpacked, valid):
     # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor) -> torch.Tensor
     """:func:`blockmax` on the int8 tensor cores from the ±1 int8 twin.
@@ -285,7 +308,7 @@ def blockmax_mma_unpacked(q_packed, min_lanes, q_scale, db_unpacked, valid):
 blockmax_mma_unpacked.launches = 0
 
 # The phase-1 formulations blockmax_topk_impl chooses from, by name.
-PHASE1 = {"popc": blockmax, "mma": blockmax_mma_packed, "mma_twin": blockmax_mma_unpacked}
+PHASE1 = {"popc": blockmax, "mma": blockmax_mma_packed, "mma_small": blockmax_small, "mma_twin": blockmax_mma_unpacked}
 
 
 # ----------------------------------------------------------------- phase 3
@@ -351,7 +374,8 @@ def blockmax_topk_impl(
     :param unpacked: the JAX contract's name for ``phase1="mma_twin"``
     :param phase1: the phase-1 formulation, a key of :data:`PHASE1`:
         ``"popc"`` (:func:`blockmax`), ``"mma"`` (:func:`blockmax_mma_packed`,
-        the tensor cores from the packed rows) or ``"mma_twin"``
+        the tensor cores from the packed rows), ``"mma_small"``
+        (:func:`blockmax_small`, the small-batch tensor-core kernel) or ``"mma_twin"``
         (:func:`blockmax_mma_unpacked`, the tensor cores from ``db_unpacked``).
         The block maxima are the same bit for bit, and phase 3 reads the
         packed rows whichever is taken.

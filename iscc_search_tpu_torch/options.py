@@ -9,7 +9,7 @@ field's bounds (``ValueError`` where pydantic raises ``ValidationError``).
 The server, aggregator and CLI fields are not ported (ROADMAP.md, queue 1,
 "Server, options, CLI, remote, aggregator"). One value differs:
 ``scan_kernel`` takes the port's phase-1 choices (``"auto"``, ``"mma"``,
-``"popc"``; ``engine/device_index.py`` ``SCAN_KERNELS``) where the JAX
+``"mma_small"``, ``"popc"``; ``engine/device_index.py`` ``SCAN_KERNELS``) where the JAX
 package takes ``"auto"``, ``"pallas"`` and ``"xla"``.
 """
 

@@ -330,15 +330,15 @@ def test_unported_features_name_their_roadmap_item(tmp_path):
 def test_scan_kernel_values_the_port_lacks_raise_with_their_roadmap_words(tmp_path, value):
     """The JAX engine's ``"pallas"`` and "anything else = the XLA scan" have
     no counterpart: the port has no Pallas and no XLA scan."""
-    with pytest.raises(NotImplementedError, match=r"scan_kernel=.*\('auto', 'mma', 'popc'\).*ROADMAP.md.*knobs"):
+    with pytest.raises(NotImplementedError, match=r"scan_kernel=.*\('auto', 'mma', 'mma_small', 'popc'\).*ROADMAP.md.*knobs"):
         DeviceNphdIndex(tmp_path / "i", scan_kernel=value, device="cpu")
     assert not (tmp_path / "i").exists()
 
 
 @pytest.mark.parametrize("scan_kernel", di.SCAN_KERNELS)
 def test_every_scan_kernel_gives_the_jax_engines_results(pair, data, scan_kernel):
-    """``scan_kernel`` chooses a kernel, never a result: on the CPU all three
-    run the plain version, return the same rows and scores in the same
+    """``scan_kernel`` chooses a kernel, never a result: on the CPU all of
+    them run the plain version, return the same rows and scores in the same
     order, and stand in parity with the JAX engine."""
     jx, default = pair
     keys, codes, lanes, removed = data
@@ -346,7 +346,7 @@ def test_every_scan_kernel_gives_the_jax_engines_results(pair, data, scan_kernel
                                      scan_kernel=scan_kernel, device="cpu")
     assert pt.scan_kernel == scan_kernel
     rng = np.random.default_rng(19)
-    for nq in (1, 70):  # both sides of every "auto" threshold
+    for nq in (1, 70, 200):  # every kernel "auto" takes
         rows = rng.integers(0, len(lanes), nq - nq // 4)
         q_codes, q_lanes = _queries(codes, lanes, rows, rng, n_random=nq // 4)
         bodies = _bodies(q_codes, q_lanes)
@@ -372,7 +372,7 @@ def test_scan_kernel_reaches_phase_one(monkeypatch):
     for scan_kernel in di.SCAN_KERNELS:
         idx = DeviceNphdIndex(scan_kernel=scan_kernel, device="cpu")
         idx.add(list(range(4)), [bytes(8), bytes(16), bytes(24), bytes(32)])
-        edges = sorted(set(di._AUTO_MMA_MIN_Q.values()))
+        edges = sorted({q for route in di._AUTO_ROUTE.values() for q in route})
         for nq in (1, *(q - 1 for q in edges), *edges):
             del seen[:]
             idx.search([bytes(8)] * nq, 2)
@@ -380,21 +380,28 @@ def test_scan_kernel_reaches_phase_one(monkeypatch):
             assert seen == want
             if scan_kernel == "auto" and nq in (1, edges[-1]):  # one kernel for every width at both ends
                 assert {p for _, _, p in seen} == {"popc" if nq == 1 else "mma"}
+        if scan_kernel == "auto":  # each kernel is taken somewhere
+            assert {di.auto_phase1(nq, lanes) for nq in (1, *edges) for lanes in (2, 4, 6, 8)} == {"popc", "mma_small", "mma"}
 
 
 @pytest.mark.parametrize("lanes", range(1, 9))
 def test_auto_phase1_is_a_table_of_batch_size_and_width(lanes):
-    """A pure function of (Q, lanes): ``"popc"`` below the width's threshold,
-    ``"mma"`` from it on, whatever the batch beyond; an odd lane count reads
-    the next even one's entry."""
-    threshold = di._AUTO_MMA_MIN_Q[lanes + lanes % 2]
+    """A pure function of (Q, lanes): ``"popc"`` below the width's first
+    threshold, ``"mma_small"`` from it to the second, ``"mma"`` from there on,
+    whatever the batch beyond; an odd lane count reads the next even one's
+    entry. The small-batch kernel takes at most 128 queries per chunk, so the
+    wgmma kernel takes every larger batch."""
+    small_from, mma_from = di._AUTO_ROUTE[lanes + lanes % 2]
+    assert 1 < small_from < mma_from <= 129
     assert di.auto_phase1(1, lanes) == "popc"
-    assert di.auto_phase1(threshold - 1, lanes) == "popc"
-    assert di.auto_phase1(threshold, lanes) == "mma"
-    for nq in (threshold + 1, 128, 512, 513, 1024, 10**6):
+    assert di.auto_phase1(small_from - 1, lanes) == "popc"
+    assert di.auto_phase1(small_from, lanes) == "mma_small"
+    assert di.auto_phase1(mma_from - 1, lanes) == "mma_small"
+    assert di.auto_phase1(mma_from, lanes) == "mma"
+    for nq in (mma_from + 1, 129, 512, 513, 1024, 10**6):
         assert di.auto_phase1(nq, lanes) == "mma"
-    assert {di.auto_phase1(nq, lanes) for nq in range(1, 200)} == {"popc", "mma"}
-    assert sorted(di._AUTO_MMA_MIN_Q) == [2, 4, 6, 8] and all(1 < q <= 128 for q in di._AUTO_MMA_MIN_Q.values())
+    assert {di.auto_phase1(nq, lanes) for nq in range(1, 200)} == {"popc", "mma_small", "mma"}
+    assert sorted(di._AUTO_ROUTE) == [2, 4, 6, 8]
     assert set(di.SCAN_KERNELS) - {"auto"} <= set(di.blockmax_topk_packedq_impl.__globals__["PHASE1"])
 
 

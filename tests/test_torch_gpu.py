@@ -140,6 +140,45 @@ def test_wgmma_kernels_at_every_width_and_query_count(dev, lanes, nq):
         assert bool((want[:, 3] < -1.0).all())  # the all-invalid block
 
 
+@pytest.mark.parametrize("lanes", range(1, 9))
+@pytest.mark.parametrize("nq", (1, 7, 8, 9, 33, 100, 128, 129, 300))
+def test_small_batch_kernel_at_every_width_and_query_count(dev, lanes, nq):
+    """``blockmax_small`` == plain (``torch.equal``) for every lane count and
+    the batch sizes around its n-tiles and its 128-query chunk: queries
+    shorter than the partition, tombstones, padding, an all-invalid block and
+    one whose only valid row is row 100, on 40 blocks (five thread blocks,
+    one block per warp) and 8,001 blocks (a full grid, shares of seven and
+    eight, sector groups split between warps); one launch per call."""
+    nbits = lanes * 32
+    for cap in (128 * 40, 128 * 8001):
+        q_packed, min_lanes, q_scale, db, valid, _ = _case(dev, nbits, seed=2000 * lanes + nq, cap=cap, nq=nq)
+        min_lanes = torch.minimum(min_lanes, torch.arange(nq, device=dev, dtype=torch.int32) % lanes + 1)
+        q_scale = (1.0 / (64.0 * min_lanes)).to(torch.float32)
+        valid[128 * 7 + 100] = 1  # a block whose only valid row is row 100
+        valid[128 * 7 : 128 * 7 + 100] = 0
+        valid[128 * 7 + 101 : 128 * 8] = 0
+        before = hs.blockmax_small.launches
+        got = hs.blockmax_small(q_packed, min_lanes, q_scale, db, valid)
+        torch.cuda.synchronize()
+        assert hs.blockmax_small.launches == before + 1
+        want = hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid)
+        assert torch.equal(got, want)
+        assert bool((got[:, 3] < -1.0).all()) and bool((got[:, 7] > -1.0).all())
+
+
+def test_small_batch_kernel_refuses_rows_it_cannot_copy_whole(dev):
+    """The TMA copies need 16-byte aligned rows and validity: a shifted view
+    raises instead of launching."""
+    q_packed, min_lanes, q_scale, db, valid, _ = _case(dev, 64, seed=9)
+    flat = torch.zeros(db.numel() + 1, dtype=torch.int32, device=dev)
+    shifted = flat[1:].view(db.shape)
+    shifted.copy_(db)
+    before = hs.blockmax_small.launches
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        hs.blockmax_small(q_packed, min_lanes, q_scale, shifted, valid)
+    assert hs.blockmax_small.launches == before
+
+
 @pytest.mark.parametrize("blocks", (1, 2, 3, 131, 133))
 def test_wgmma_kernels_on_few_blocks_and_just_around_the_sm_count(dev, blocks):
     """One block (both teams of the one thread block take it), odd shares,
@@ -154,6 +193,7 @@ def test_wgmma_kernels_on_few_blocks_and_just_around_the_sm_count(dev, blocks):
         want = hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid)
         assert torch.equal(hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid), want)
         assert torch.equal(hs.blockmax_mma_unpacked(q_packed, min_lanes, q_scale, twin, valid), want)
+        assert torch.equal(hs.blockmax_small(q_packed, min_lanes, q_scale, db, valid), want)
 
 
 @pytest.mark.parametrize("nbits,k", [(64, 10), (192, 7), (256, 16)])
@@ -190,7 +230,7 @@ def test_kernels_take_a_strided_query_matrix(dev):
     q_packed, min_lanes, q_scale, db, valid, block_ids = _case(dev, 64, seed=3)
     assert q_packed.shape[1] == 8 and db.shape[1] == 2
     narrow = q_packed[:, :2].contiguous()
-    for phase1 in (hs.blockmax, hs.blockmax_mma_packed):
+    for phase1 in (hs.blockmax, hs.blockmax_mma_packed, hs.blockmax_small):
         assert torch.equal(phase1(q_packed, min_lanes, q_scale, db, valid), phase1(narrow, min_lanes, q_scale, db, valid))
     assert torch.equal(
         hs.gather_rescore(q_packed, min_lanes, block_ids, db), hs.gather_rescore(narrow, min_lanes, block_ids, db)
@@ -252,7 +292,7 @@ def _engine_pair(rng, n, **kwargs):
 
 
 @pytest.mark.parametrize("nq", (1, 63, 64, 65, 512, 600))
-@pytest.mark.parametrize("scan_kernel", ("auto", "mma", "popc"))
+@pytest.mark.parametrize("scan_kernel", ("auto", "mma", "mma_small", "popc"))
 def test_engine_search_under_every_scan_kernel_equals_the_cpu_plain_path(dev, scan_kernel, nq):
     """Batch sizes around the 64-query tile and the 512-query chunk: the
     engine on the card returns the CPU index's score multisets under every
@@ -287,7 +327,7 @@ def test_engine_search_under_every_scan_kernel_equals_the_cpu_plain_path(dev, sc
         np.testing.assert_allclose(ref[j, kg.view(">u8").ravel().astype(np.int64)], sg, rtol=0, atol=1e-6)
 
 
-@pytest.mark.parametrize("scan_kernel", ("mma", "popc"))
+@pytest.mark.parametrize("scan_kernel", ("mma", "mma_small", "popc"))
 def test_engine_search_on_another_stream(dev, scan_kernel):
     """A search made under ``torch.cuda.stream`` launches on that stream and
     gets the tensor-core kernel's large dynamic shared memory there too

@@ -364,10 +364,11 @@ def test_phase3_split_up_to_a_whole_partition_is_exact(nbits, n, k, monkeypatch)
 
 
 def test_phase1_names_the_three_wrappers():
-    assert hs.PHASE1 == {"popc": hs.blockmax, "mma": hs.blockmax_mma_packed, "mma_twin": hs.blockmax_mma_unpacked}
+    assert hs.PHASE1 == {"popc": hs.blockmax, "mma": hs.blockmax_mma_packed, "mma_small": hs.blockmax_small,
+                         "mma_twin": hs.blockmax_mma_unpacked}
     packed, valid, q_codes, q_lanes = _partition(128, n=1024)
     args = (_t(q_codes), _t(q_lanes), _t(packed), _t(valid), 10, 128)
-    with pytest.raises(ValueError, match=r"phase1 must be one of \['mma', 'mma_twin', 'popc'\], got 'pallas'"):
+    with pytest.raises(ValueError, match=r"phase1 must be one of \['mma', 'mma_small', 'mma_twin', 'popc'\], got 'pallas'"):
         hs.blockmax_topk_packedq_impl(*args, phase1="pallas")
     with pytest.raises(ValueError, match="requires db_unpacked"):
         hs.blockmax_topk_packedq_impl(*args, phase1="mma_twin")
@@ -439,10 +440,34 @@ def test_blockmax_mma_packed_wrapper_checks_its_inputs(mutate, error):
         hs.blockmax_mma_packed(*mutate(_args()))
 
 
+@pytest.mark.parametrize(
+    "mutate,error", [*_PACKED_PHASE1_BAD_INPUTS, (lambda a: (a[0], a[1][:3], *a[2:]), "do not fit")]
+)
+def test_blockmax_small_wrapper_checks_its_inputs(mutate, error):
+    with pytest.raises(ValueError, match=error):
+        hs.blockmax_small(*mutate(_args()))
+
+
+def test_blockmax_small_on_the_cpu_is_the_plain_phase1_and_counts_no_launch():
+    """CPU tensors take the plain version, whatever their alignment (the
+    16-byte rule is the kernel's TMA copies'), and count no launch."""
+    q_packed, min_lanes, q_scale, db, valid = _args(nbits=192, cap=512, nq=9)
+    before = hs.blockmax_small.launches
+    want = hs.blockmax_plain(q_packed, min_lanes, q_scale, db, valid)
+    assert torch.equal(hs.blockmax_small(q_packed, min_lanes, q_scale, db, valid), want)
+    shifted = torch.zeros(db.numel() + 1, dtype=torch.int32)[1:].view(db.shape)
+    shifted.copy_(db)
+    assert shifted.data_ptr() % 16 and torch.equal(hs.blockmax_small(q_packed, min_lanes, q_scale, shifted, valid), want)
+    assert hs.blockmax_small.launches == before
+    assert hs._SIGNATURES["iscc_blockmax_small"] == hs._PHASE1
+
+
 def test_mma_wrappers_refuse_devices_without_a_kernel():
     q_packed, min_lanes, q_scale, db, valid = [t.to("meta") for t in _args()]
     with pytest.raises(RuntimeError, match="no kernel for device type 'meta'"):
         hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid)
+    with pytest.raises(RuntimeError, match="no kernel for device type 'meta'"):
+        hs.blockmax_small(q_packed, min_lanes, q_scale, db, valid)
     with pytest.raises(RuntimeError, match="no kernel for device type 'meta'"):
         hs.blockmax_mma_unpacked(q_packed, min_lanes, q_scale, torch.empty((256, 128), dtype=torch.int8, device="meta"), valid)
 
@@ -474,8 +499,8 @@ def test_wrappers_refuse_devices_without_a_kernel():
 def test_build_key_follows_sources_and_nvcc_is_required(tmp_path, monkeypatch):
     names = [p.name for p in _build.sources()]
     assert names == [
-        "blockmax.cu", "blockmax_bitplane.cu", "blockmax_mma.cu", "blockmax_variants.cu", "gather_rescore.cu",
-        "int4_dot.cu",
+        "blockmax.cu", "blockmax_bitplane.cu", "blockmax_mma.cu", "blockmax_small.cu", "blockmax_variants.cu",
+        "gather_rescore.cu", "int4_dot.cu",
     ]
     key = _build.build_key()
     assert key == _build.build_key() and len(key) == 16
@@ -608,6 +633,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "iscc_search_tpu_torch.experiments.exp_int4",
         "iscc_search_tpu_torch.experiments.exp_bitplane_int8",
         "iscc_search_tpu_torch.experiments.exp_bitplane_u8",
+        "iscc_search_tpu_torch.experiments.exp_small_ablate",
+        "iscc_search_tpu_torch.ops.small_layout",
     } <= set(names)
 
 
@@ -656,9 +683,10 @@ def test_chip_smoke_bounds_each_variant_by_its_own_work():
 
 
 def test_chip_smoke_measures_both_sides_of_every_auto_threshold():
-    """The [route] grid holds each threshold of the engine's ``"auto"``
-    table and a batch size below it, so the smoke run times both kernels on
-    both sides of every switch."""
+    """The [route] grid holds a batch size on each side of every threshold
+    of the engine's ``"auto"`` table, so the smoke run times all three
+    kernels on both sides of every switch; the warm searches' small batch
+    is one ``"auto"`` gives the small-batch kernel."""
     from iscc_search_tpu_torch.engine import device_index as di
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -666,11 +694,14 @@ def test_chip_smoke_measures_both_sides_of_every_auto_threshold():
     spec.loader.exec_module(mod)
     assert list(mod.ROUTE_QS) == sorted(set(mod.ROUTE_QS)) and mod.ROUTE_QS[0] == 1 and mod.ROUTE_QS[-1] >= 1024
     assert {1, 2, 4, 8, 16, 32, 64, 96, 128, 192, 256, 512, 1024} <= set(mod.ROUTE_QS)
+    assert mod.ROUTE_KERNELS == {"popc": "blockmax", "mma_small": "blockmax_small", "mma": "blockmax_mma_packed"}
+    order = ("popc", "mma_small", "mma")
     for lanes in mod.LANE_CHOICES:
-        threshold = di._AUTO_MMA_MIN_Q[lanes]
-        assert threshold in mod.ROUTE_QS and mod.ROUTE_QS.index(threshold) > 0
-        below = mod.ROUTE_QS[mod.ROUTE_QS.index(threshold) - 1]
-        assert di.auto_phase1(below, lanes) == "popc" and di.auto_phase1(threshold, lanes) == "mma"
+        for kernel, threshold in zip(order[1:], di._AUTO_ROUTE[lanes]):
+            below = max(q for q in mod.ROUTE_QS if q < threshold)
+            above = min(q for q in mod.ROUTE_QS if q >= threshold)
+            assert order.index(di.auto_phase1(below, lanes)) < order.index(kernel) == order.index(di.auto_phase1(above, lanes))
+        assert di.auto_phase1(mod.SMALL_Q, lanes) == "mma_small"
     assert mod.N_PERSIST == 1_048_576 and mod.N_PERSIST // (mod.PERSIST_SHARD_BYTES // 45) >= 4
 
 
@@ -679,6 +710,8 @@ def test_chip_smoke_simprint_and_product_phases_run_on_the_cpu(tmp_path, request
     size on the CPU (the wrappers' plain versions): every check they make
     on the card passes here too. Their full sizes: BASELINE config 4's
     100,000,000 chunk rows and the 20,000-asset product cell."""
+    from iscc_search_tpu_torch.engine import device_index as di
+
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
@@ -690,8 +723,9 @@ def test_chip_smoke_simprint_and_product_phases_run_on_the_cpu(tmp_path, request
     request.addfinalizer(lambda: torch.set_num_threads(threads))
     launches, stats = mod.phase_simprint(rng, dev, tmp_path, n_assets=64, chunks=20, trials=1, widths=(5, 20), batches=(1, 3))
     assert set(launches) == set(stats) == set(mod.PATH_KERNELS)
-    assert all(s["max_abs_err"] == 0.0 for s in stats.values())
+    assert {s["q"] for s in stats["blockmax_small"]} == {5, 20} and len(stats["blockmax_mma_packed"]) == 3
+    assert all(s["max_abs_err"] == 0.0 for entries in stats.values() for s in entries)
     launches, stats = mod.phase_product(rng, dev, tmp_path, n_assets=60, n_sp=12, n_cpu=30, reps=1, clients=2, per_client=1)
     assert set(launches) == set(mod.PATH_KERNELS)
-    assert set(stats) == {"blockmax_mma_packed", "gather_rescore"}
-    assert all(s["max_abs_err"] == 0.0 for s in stats.values())
+    assert set(stats) == {mod.ROUTE_KERNELS[di.auto_phase1(12, 4)], "gather_rescore"}
+    assert all(s["max_abs_err"] == 0.0 for entries in stats.values() for s in entries)
