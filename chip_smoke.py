@@ -23,7 +23,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    ``blockmax``'s). ``gather_rescore`` and ``blockmax_small`` run shorter
    than their Python wrappers, so their times are CUDA-graph replays of
    their calls (the device's clock); ``gather_rescore``'s host-paced
-   reading is printed beside it;
+   reading is printed beside it. ``gather_rescore`` at each partition is a
+   point of the [gather] sweep (below);
+   gather  — the [gather] sweep of candidate reuse (Q * kk pairs per block
+   of the partition): at each point both forms of ``gather_rescore``
+   (query-major and block-major, ``form=``) and the route (``form=None``),
+   each ``torch.equal`` to ``gather_rescore_plain`` and to the other form,
+   each form's time by CUDA-graph replays beside the bound and its share;
+   it fails if the route's form is more than 1.5x the faster form's time
+   anywhere (``GATHER_BLOCK_REUSE`` of ``ops/hopper_scan.py`` then is out of
+   date). Points: config 3's four partitions (phase 3); a ladder on
+   synthetic random partitions at the product's capacity, Q=64, the top
+   128-4,096 blocks of ``blockmax_mma_packed`` at every width (run right
+   after phase 3); config 4's partition at Q=512, kk=256 and Q=128,
+   kk=2,048 (phase 9); the product's chunk partition at Q=100, kk=512 and
+   Q=64, kk=4,096 (phase 10). The table of all points is printed before the
+   JSON summary;
 4. slice   — ``DeviceNphdIndex(path, device="cuda")`` (``scan_kernel``
    left at ``"auto"``) filled through ``add_packed``, 1/64 of the keys
    removed, 4,096 rows appended through ``add``, then ``search`` of 512
@@ -87,8 +102,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    every planted asset is at rank 0 with all its live chunks, no removed
    chunk comes back. Then the three phase-1 kernels at Q=10 and Q=100 (one
    asset's chunks), ``blockmax_mma_packed`` at Q=512 (a full sweep) and
-   ``gather_rescore`` (the count's top blocks) against their plain versions
-   on the 100,000,000-row partition, with their times and bounds;
+   ``gather_rescore`` (the count's top blocks at limit 10 and 100, two
+   [gather] points) against their plain versions on the 100,000,000-row
+   partition, with their times and bounds;
 10. product — ``TpuIndex`` on the card: 20,000 assets (units of 64-256 bits,
    INSTANCE, 100 x 128-bit simprints, metadata; config 4 cut to 2% of its
    assets) through ``add_assets`` in batches of 1,000, 1% re-added with
@@ -100,9 +116,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    sweep's candidates, 400 or 4,000 per chunk query, against brute-force
    ``hamming_scores`` over all stored chunks); 8 concurrent clients through
    the batcher (answers equal the sequential ones); the phase-1 kernel
-   ``"auto"`` takes for a request's 100 chunk queries and ``gather_rescore`` (one 64-query
-   slice of phases 2-3 at the 4,096 candidate blocks of count 4,000)
-   against their plain versions on the product's chunk partition;
+   ``"auto"`` takes for a request's 100 chunk queries and ``gather_rescore`` (a
+   limit-10 request's 100 chunk queries at 512 candidate blocks, and one
+   64-query slice of phases 2-3 at the 4,096 candidate blocks of count
+   4,000: two [gather] points) against their plain versions on the
+   product's chunk partition, then that slice's phases 2-3 split by part
+   (phase 2, candidates, ``gather_rescore``, score epilogue, ``torch.topk``,
+   row gather) and under the profiler;
    ``flush``/``close``/reopen (identical answers); a 1,000-asset copy
    opened with ``device="cpu"`` answering ``model_dump()``-identically.
 
@@ -111,7 +131,10 @@ they drive their path and read them just after (phase 10's kernel-against-
 plain launches are not counted); the JSON summary's ``launches`` of the path
 kernels is the sum over the three search paths, ``launches_by_path`` splits
 it, and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
-10's kernel-against-plain numbers, one entry per shape.
+10's kernel-against-plain numbers, one entry per shape (for
+``gather_rescore`` the routed form's, with both forms' times).
+``gather_rescore`` also carries ``by_form``, every [gather] point, and
+``launches_by_form``, each path's calls by form.
 
 Each kernel's line in the JSON summary carries ``bound_ms``, the least time
 the card could take for the same work: the larger of its bytes (each input
@@ -262,10 +285,15 @@ PRODUCT_REPS = 7  # single requests per query shape
 PRODUCT_CLIENTS, PRODUCT_PER_CLIENT = 8, 8
 PRODUCT_T0 = 1_700_000_000_000_000  # ISCC-ID timestamps (microseconds) of the product assets
 PATH_KERNELS = ("blockmax", "blockmax_mma_packed", "blockmax_small", "gather_rescore")  # what a search launches
+GATHER_REPS = 20  # CUDA-graph-captured calls per form and [gather] point
+# The [gather] ladder: synthetic random partitions at the product's capacity,
+# Q=64, candidate blocks per query from reuse ~0.5 to ~15, at every width.
+GATHER_Q, GATHER_LADDER_KK = 64, (128, 256, 512, 768, 1024, 4096)
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_S = 1979e12
 POPC_PER_CLOCK_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
 CARD = {}  # filled by phase_device: SMs and maximum SM clock
+PATH_FORMS = {}  # path label -> gather_rescore calls by form, read beside its launches
 
 
 def log(msg):
@@ -309,6 +337,58 @@ def variant_bound(name, n, nq):
 
 def popc_per_s():
     return POPC_PER_CLOCK_SM * CARD["sms"] * CARD["max_sm_mhz"] * 1e6
+
+
+def gather_work(nq, kk, lanes, blocks):
+    """(bytes, operations) of gather_rescore: the rows of the ``blocks``
+    distinct candidate blocks, the block ids and the queries (words and
+    prefix lanes) read once, the (nq, kk * 128) f32 dots written once; one
+    popc per (candidate row, lane)."""
+    return blocks * 128 * lanes * 4 + nq * kk * 4 + nq * (lanes * 4 + 4) + nq * kk * 512, nq * kk * 128 * lanes
+
+
+def gather_point(label, dev, q_packed, min_lanes, block_ids, db, want=None):
+    """One point of the [gather] sweep: both forms of ``gather_rescore`` and
+    the route (``form=None``) on the same inputs, each ``torch.equal`` to the
+    plain version (``want``, computed if None) and to the other form; each
+    form's time by CUDA-graph replays, beside the bound. Fails on a card if
+    the route's form takes more than ``AUTO_SLACK`` x the faster form's
+    time. Returns the point's dict (``ms`` is the routed form's)."""
+    nq, kk = block_ids.shape
+    cap, lanes = db.shape
+    nblocks = cap // hs.BLOCK
+    routed = hs.gather_form(nq, kk, nblocks, lanes)
+    if want is None:
+        want = hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
+    outs = {form: hs.gather_rescore(q_packed, min_lanes, block_ids, db, form=form) for form in hs.GATHER_FORMS}
+    outs["route"] = hs.gather_rescore(q_packed, min_lanes, block_ids, db)
+    sync(dev)
+    for form, got in outs.items():
+        if not torch.equal(got, want):
+            raise AssertionError(f"[gather] {label}: the {form} form != plain")
+    if not torch.equal(outs["query"], outs["block"]):
+        raise AssertionError(f"[gather] {label}: the query-major and block-major forms differ")
+    err = max(float((got - want).abs().max()) for got in outs.values())
+    del outs
+    blocks = int(torch.unique(block_ids).numel())
+    nbytes, ops = gather_work(nq, kk, lanes, blocks)
+    bound_ms, bound_by = bound(nbytes, ops, popc_per_s() if dev.type == "cuda" else 1e12)
+    reps = GATHER_REPS if dev.type == "cuda" else 1
+    ms = {form: time_ms(functools.partial(hs.gather_rescore, q_packed, min_lanes, block_ids, db, form=form), dev,
+                        reps, graph=True) for form in hs.GATHER_FORMS}
+    fastest = min(ms, key=ms.get)
+    log(f"[gather] {label}: cap {cap}, {lanes * 32}-bit, Q={nq}, kk={kk}, reuse {nq * kk / nblocks:.3f} "
+        f"({blocks} distinct blocks): query {ms['query']:.4f} ms ({100 * bound_ms / ms['query']:.0f}% of bound), "
+        f"block {ms['block']:.4f} ms ({100 * bound_ms / ms['block']:.0f}%), bound {bound_ms:.4f} ms by {bound_by}; "
+        f"route takes {routed}; both forms and the route == plain and each other")
+    if dev.type == "cuda" and ms[routed] > AUTO_SLACK * ms[fastest]:
+        raise AssertionError(
+            f"[gather] {label}: the route takes the {routed} form at {ms[routed]:.4f} ms, more than {AUTO_SLACK}x "
+            f"the {fastest} form's {ms[fastest]:.4f} ms: GATHER_BLOCK_REUSE in ops/hopper_scan.py is out of date")
+    return {"point": label, "q": nq, "kk": kk, "cap": cap, "lanes": lanes, "reuse": nq * kk / nblocks,
+            "blocks": blocks, "form": routed, "ms": ms[routed], "query_ms": ms["query"], "block_ms": ms["block"],
+            "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms[routed],
+            "query_share": bound_ms / ms["query"], "block_share": bound_ms / ms["block"], "max_abs_err": err}
 
 
 def bodies_of(codes, lanes):
@@ -425,16 +505,18 @@ def phase_kernels(rng, dev, part_rows):
         bm = _compare_phase1(f"{nbits}-bit edge", _phase1_outputs(q_packed, min_lanes, q_scale, db, valid, twin), err)
         if not bool((bm[:, 3] < -1.0).all()):
             raise AssertionError("a fully invalid block must lie below NEG_SCORE")
-        gr = hs.gather_rescore(q_packed, min_lanes, block_ids, db)
-        _compare(f"gather_rescore {nbits}-bit edge", gr,
-                 hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db), err)
-    log("[kernels] edge cases: kernel == plain for 64/128/192/256-bit (Q=77, tombstones, dead block); "
-        "blockmax_mma_unpacked == blockmax_mma_packed == blockmax_small == blockmax")
+        want = hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
+        for form in (None, *hs.GATHER_FORMS):
+            _compare(f"gather_rescore {nbits}-bit edge, form {form}",
+                     hs.gather_rescore(q_packed, min_lanes, block_ids, db, form=form), want, err)
+    log("[kernels] edge cases: kernel == plain for 64/128/192/256-bit (Q=77, tombstones, dead block; gather_rescore "
+        "in both forms and the route); blockmax_mma_unpacked == blockmax_mma_packed == blockmax_small == blockmax")
 
     # Main-path shapes: the capacities of the config-3 partitions, Q=512, kk=16.
     ms = dict.fromkeys(KERNELS, 0.0)
     plain_ms = dict.fromkeys(KERNELS, 0.0)
     gather_host_ms = 0.0  # gather_rescore paced by the host's launches
+    gather_points = []  # the [gather] sweep's config-3 points, one per partition
     work = {name: [0.0, 0.0] for name in KERNELS}  # bytes, operations
     popc_ops = 0.0  # what blockmax.cu executes: one popc per (query, row, lane)
     for lanes, n_part in sorted(part_rows.items()):
@@ -448,7 +530,10 @@ def phase_kernels(rng, dev, part_rows):
         calls["gather_rescore"] = lambda: hs.gather_rescore(q_packed, min_lanes, block_ids, db)
         calls["gather_rescore_plain"] = lambda: hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
         _compare_phase1(f"{nbits}-bit main", calls, err)
-        _compare(f"gather_rescore {nbits}-bit main", calls["gather_rescore"](), calls["gather_rescore_plain"](), err)
+        point = gather_point(f"config3 {nbits}-bit", dev, q_packed, min_lanes, block_ids, db,
+                             want=calls["gather_rescore_plain"]())
+        err["gather_rescore"] = max(err["gather_rescore"], point["max_abs_err"])
+        gather_points.append(point)
         # blockmax_small at a batch in its range (the others at Q=512): the
         # first SMALL_Q queries, against plain and the popc kernel.
         small = _phase1_outputs(q_packed[:SMALL_Q], min_lanes[:SMALL_Q], q_scale[:SMALL_Q], db, valid, twin)
@@ -458,7 +543,7 @@ def phase_kernels(rng, dev, part_rows):
         calls["blockmax_small"], calls["blockmax_small_plain"] = small["blockmax_small"], small["blockmax_small_plain"]
         t = {name: time_ms(calls[name], dev, 10) for name in PHASE1 if name != "blockmax_small"}
         t["blockmax_small"] = time_ms(calls["blockmax_small"], dev, 20, graph=True)  # shorter than its wrapper
-        t["gather_rescore"] = time_ms(calls["gather_rescore"], dev, 20, graph=True)  # the device's clock
+        t["gather_rescore"] = point["ms"]  # the routed form, by the device's clock
         gather_host_ms += time_ms(calls["gather_rescore"], dev, 20)
         t.update({f"{name}_plain": time_ms(calls[f"{name}_plain"], dev, 5 if name == "gather_rescore" else 3) for name in KERNELS})
         for name in KERNELS:
@@ -467,7 +552,6 @@ def phase_kernels(rng, dev, part_rows):
         # Bytes each input read once and each output written once; operations
         # of the function: two per ±1 product of a (query, row) dot, at the
         # int8 rate for every phase-1 kernel, whatever unit it runs them on.
-        q_bytes = N_QUERIES * (lanes * 4 + 8)
         for name, nq, extra in (("blockmax", N_QUERIES, 0), ("blockmax_mma_packed", N_QUERIES, 0),
                                 ("blockmax_mma_unpacked", N_QUERIES, cap * (nbits - lanes * 4)),  # the twin's bytes
                                 ("blockmax_small", SMALL_Q, 0)):
@@ -475,14 +559,15 @@ def phase_kernels(rng, dev, part_rows):
             work[name][0] += nbytes + extra
             work[name][1] += ops
         popc_ops += N_QUERIES * cap * lanes
-        blocks = int(torch.unique(block_ids).numel())
-        work["gather_rescore"][0] += blocks * 128 * lanes * 4 + block_ids.numel() * 4 + q_bytes + block_ids.numel() * 512
-        work["gather_rescore"][1] += block_ids.numel() * 128 * lanes
+        for i, amount in enumerate(gather_work(N_QUERIES, KK, lanes, point["blocks"])):
+            work["gather_rescore"][i] += amount
         log(f"[kernels] {nbits}-bit cap={cap} Q={N_QUERIES} kk={KK}: kernel == plain; "
             + ", ".join(f"{k} {v:.4f} ms" for k, v in t.items()))
         del q_packed, min_lanes, q_scale, db, valid, block_ids, twin, calls
     log(f"[kernels] gather_rescore per sweep of all partitions: {ms['gather_rescore']:.4f} ms by the device's clock "
-        f"(CUDA-graph replay of 20 calls), {gather_host_ms:.4f} ms with each call launched by the host (events)")
+        f"(CUDA-graph replay of {GATHER_REPS} calls, the routed form), {gather_host_ms:.4f} ms with each call "
+        f"launched by the host (events); query-major {sum(p['query_ms'] for p in gather_points):.4f} ms, "
+        f"block-major {sum(p['block_ms'] for p in gather_points):.4f} ms")
     stats = {}
     for name in KERNELS:
         rate = popc_per_s() if name == "gather_rescore" else INT8_OPS_S
@@ -495,10 +580,45 @@ def phase_kernels(rng, dev, part_rows):
             log(f"[kernels] blockmax: the ceiling of its popc count is {stats[name]['popc_ceiling_ms']:.4f} ms ({popc_ops:.4g} popc)")
         if name == "blockmax_small":
             stats[name]["q"] = SMALL_Q
+        if name == "gather_rescore":
+            stats[name]["by_form"] = gather_points
         log(f"[kernels] {name}: {ms[name]:.4f} ms per Q={SMALL_Q if name == 'blockmax_small' else N_QUERIES} sweep of all partitions "
             f"(plain {plain_ms[name]:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}: {work[name][0]:.4g} bytes, "
             f"{work[name][1]:.4g} ops), max |kernel - plain| = {err[name]}")
     return stats
+
+
+def phase_gather(rng, dev):
+    """The [gather] ladder: both forms of ``gather_rescore`` on synthetic
+    random partitions at the product's capacity (``_cap_rows`` of its
+    2,000,000 chunk rows, those live), ``GATHER_Q`` random full-length
+    queries, their top-kk blocks by ``blockmax_mma_packed`` for each kk of
+    ``GATHER_LADDER_KK`` (reuse ~0.5 to ~15), at every width: where the
+    block-major form starts to win. Returns the points."""
+    n_live = PRODUCT_ASSETS * PRODUCT_SIMPRINTS
+    cap = _cap_rows(n_live)
+    points = []
+    for nbits in (64, 128, 192, 256):
+        lanes = nbits // 32
+        db = torch.randint(-(2**31), 2**31, (cap, lanes), dtype=torch.int32, device=dev)
+        valid = torch.zeros(cap, dtype=torch.uint8, device=dev)
+        valid[:n_live] = 1
+        q_codes, q_lanes = random_codes(rng, GATHER_Q, lanes_choices=(lanes,), p=(1.0,))
+        q_packed = torch.from_numpy(q_codes.view(np.int32)).to(dev)
+        min_lanes, q_scale = query_prefix(torch.from_numpy(q_lanes).to(dev), nbits)
+        block_max = hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid)
+        for kk in GATHER_LADDER_KK:
+            block_ids = topk_blocks_hier(block_max, kk).to(torch.int32)
+            points.append(gather_point(f"synthetic {nbits}-bit kk={kk}", dev, q_packed, min_lanes, block_ids, db))
+        del db, valid, block_max
+    for nbits in (64, 128, 192, 256):
+        mine = [p for p in points if p["lanes"] == nbits // 32]
+        wins = [p["reuse"] for p in mine if p["block_ms"] < p["query_ms"]]
+        log(f"[gather] ladder {nbits}-bit, cap {cap}, Q={GATHER_Q}, ms query / block: "
+            + ", ".join(f"kk={p['kk']} (reuse {p['reuse']:.2f}) {p['query_ms']:.4f} / {p['block_ms']:.4f}" for p in mine)
+            + f"; block-major faster at reuse {', '.join(f'{r:.2f}' for r in wins) or 'none'}; the table's "
+            f"threshold {hs.GATHER_BLOCK_REUSE[nbits // 32]}")
+    return points
 
 
 def brute_force(dev, q_codes, q_lanes, all_codes, all_lanes, valid):
@@ -954,16 +1074,21 @@ def check_path_launches(label, dev, launches, scans):
             raise AssertionError(f"{label}: a Q={nq} scan of a {lanes * 32}-bit partition took {phase1!r}, "
                                  f"'auto' names {auto_phase1(nq, lanes)!r}")
     named = {hs.PHASE1[phase1].__name__ for _, _, phase1 in scans} | {"gather_rescore"}
+    PATH_FORMS[label] = dict(hs.gather_rescore.by_form)
     if dev.type == "cuda":
         for name in PATH_KERNELS:
             if (launches[name] > 0) != (name in named):
                 raise AssertionError(f"{label}: {name} launched {launches[name]} times; the path's scans name {sorted(named)}")
+        if sum(PATH_FORMS[label].values()) != launches["gather_rescore"]:
+            raise AssertionError(f"{label}: gather_rescore's calls by form {PATH_FORMS[label]} do not sum to its launches")
+    log(f"{label} gather_rescore calls of the path by form: {PATH_FORMS[label]}")
     return launches
 
 
 def reset_launches():
     for fn in (*hs.PHASE1.values(), hs.gather_rescore):
         fn.launches = 0
+    hs.gather_rescore.by_form = dict.fromkeys(hs.GATHER_FORMS, 0)
 
 
 def read_launches():
@@ -975,11 +1100,13 @@ def uncounted():
     """Launches inside the block are not the path's: the counts are put back
     as they were (kernel-against-plain checks made within a path's run)."""
     saved = {fn: fn.launches for fn in (*hs.PHASE1.values(), hs.gather_rescore)}
+    forms = dict(hs.gather_rescore.by_form)
     try:
         yield
     finally:
         for fn, n in saved.items():
             fn.launches = n
+        hs.gather_rescore.by_form = forms
 
 
 def device_memory(dev):
@@ -1227,13 +1354,18 @@ def simprint_kernel_stats(dev, engine, planted, widths, batches):
     path's shapes: the 128-bit partition; the three phase-1 kernels at
     Q = the narrowest and the widest query asset (10 and 100 chunks, one
     asset's request), ``blockmax_mma_packed`` also at Q = 512 (one full
-    sweep), and ``gather_rescore`` of the count's top blocks."""
+    sweep), and ``gather_rescore`` of the count's top blocks for a full
+    sweep at limit 10 and for 128 queries at limit 100 (two [gather]
+    points)."""
     part = engine._index._sync_device()[4]
     flat = [q for j in range(batches[-1]) for q in planted[j][: widths[-1]]][: SimprintEngine.max_sweep_queries]
     kk = candidate_blocks(C4_LIMIT * engine.oversampling_factor, part.cap)
+    kk100 = candidate_blocks(100 * engine.oversampling_factor, part.cap)
     shapes = [(name, nq, None) for nq in (widths[0], widths[-1]) for name in ROUTE_KERNELS.values()]
-    return path_kernel_stats("[simprint]", dev, part, flat,
-                             [*shapes, ("blockmax_mma_packed", len(flat), None), ("gather_rescore", len(flat), kk)])
+    return path_kernel_stats("[simprint]", dev, part, flat, [
+        *shapes, ("blockmax_mma_packed", len(flat), None), ("gather_rescore", len(flat), kk),
+        ("gather_rescore", min(128, len(flat)), kk100),
+    ])
 
 
 def candidate_blocks(count, cap):
@@ -1248,7 +1380,8 @@ def path_kernel_stats(label, dev, part, flat, shapes):
     on the path's own partition ``part``, with their times. ``shapes`` lists
     (kernel name, Q, kk): the first Q of the chunk queries ``flat``, and for
     ``gather_rescore`` the kk candidate blocks per query (the top-kk blocks
-    of the tensor-core phase 1). Returns {kernel name: [one dict per shape]}."""
+    of the tensor-core phase 1), a [gather] point (``gather_point``).
+    Returns {kernel name: [one dict per shape]}."""
     cap = part.cap
     nbits = part.packed_dev.shape[1] * 32
     q_codes, q_lanes = pack_codes(flat)
@@ -1261,36 +1394,31 @@ def path_kernel_stats(label, dev, part, flat, shapes):
         min_lanes, q_scale = query_prefix(l_all[:nq].contiguous(), nbits)
         args = (q_packed, min_lanes, q_scale, part.packed_dev, part.valid_dev)
         if name == "gather_rescore":
+            # A [gather] point: both forms and the route, the routed form's time.
             block_ids = topk_blocks_hier(hs.blockmax_mma_packed(*args), kk).to(torch.int32)
-            run = functools.partial(hs.gather_rescore, q_packed, min_lanes, block_ids, part.packed_dev)
             plain = functools.partial(hs.gather_rescore_plain, q_packed, min_lanes, block_ids, part.packed_dev)
-            blocks = int(torch.unique(block_ids).numel())
-            row_bytes = nbits // 8
-            nbytes = blocks * 128 * row_bytes + block_ids.numel() * 4 + nq * 28 + block_ids.numel() * 512
-            work = bound(nbytes, block_ids.numel() * 128 * (nbits // 32), popc_per_s() if dev.type == "cuda" else 1e12)
             want, plain_ms = plain(), time_ms(plain, dev, 1)
-        else:
-            run = functools.partial(getattr(hs, name), *args)
-            work = bound(*phase1_work(cap, nbits // 32, nq), INT8_OPS_S)
-            if nq not in plain_of:
-                plain = functools.partial(hs.blockmax_plain, *args)
-                plain_of[nq] = (plain(), time_ms(plain, dev, 1))
-            want, plain_ms = plain_of[nq]
+            point = gather_point(f"{label} Q={nq} kk={kk}", dev, q_packed, min_lanes, block_ids, part.packed_dev, want)
+            stats.setdefault(name, []).append({**point, "plain_ms": plain_ms})
+            log(f"{label} gather_rescore plain version at Q={nq}, kk={kk}: {plain_ms:.4f} ms")
+            continue
+        run = functools.partial(getattr(hs, name), *args)
+        work = bound(*phase1_work(cap, nbits // 32, nq), INT8_OPS_S)
+        if nq not in plain_of:
+            plain = functools.partial(hs.blockmax_plain, *args)
+            plain_of[nq] = (plain(), time_ms(plain, dev, 1))
+        want, plain_ms = plain_of[nq]
         got = run()
         sync(dev)
         if not torch.equal(got, want):
             raise AssertionError(f"{label} {name} at Q={nq}: kernel != plain")
         err = float((got - want).abs().max())
         del got
-        ms = time_ms(run, dev, 10 if dev.type == "cuda" else 1, graph=name == "gather_rescore")
-        entry = {"q": nq, "cap": cap, "ms": ms, "plain_ms": plain_ms, "bound_ms": work[0], "bound_by": work[1],
-                 "max_abs_err": err}
-        if kk is not None:
-            entry["kk"] = kk
-        stats.setdefault(name, []).append(entry)
-        log(f"{label} {name} at the path's shape (cap {cap}, Q={nq}{f', kk={kk}' if kk is not None else ''}): "
-            f"kernel == plain; {ms:.4f} ms (plain {plain_ms:.4f} ms, bound {work[0]:.4f} ms by {work[1]}, "
-            f"{100 * work[0] / ms:.0f}% of it)")
+        ms = time_ms(run, dev, 10 if dev.type == "cuda" else 1)
+        stats.setdefault(name, []).append({"q": nq, "cap": cap, "ms": ms, "plain_ms": plain_ms, "bound_ms": work[0],
+                                           "bound_by": work[1], "max_abs_err": err})
+        log(f"{label} {name} at the path's shape (cap {cap}, Q={nq}): kernel == plain; {ms:.4f} ms (plain "
+            f"{plain_ms:.4f} ms, bound {work[0]:.4f} ms by {work[1]}, {100 * work[0] / ms:.0f}% of it)")
     return stats
 
 
@@ -1672,16 +1800,23 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
 
     # The kernels at this path's own shapes, on its chunk partition: a limit-100
     # request's chunk queries through the tensor-core phase 1, and one query
-    # slice of its phases 2-3 (PHASE3_BUDGET_BYTES) at its count's candidate blocks.
+    # slice of its phases 2-3 (PHASE3_BUDGET_BYTES) at its count's candidate
+    # blocks; gather_rescore also at a limit-10 request's (two [gather] points).
+    # Then phase 3 of the limit-100 slice, split by part.
     part = chunk_index._sync_device()[4]
     kk = candidate_blocks(100 * 2 * index._opts.oversampling_factor, part.cap)
+    kk10 = candidate_blocks(10 * 2 * index._opts.oversampling_factor, part.cap)
     step = max(1, hs.PHASE3_BUDGET_BYTES // (kk * hs.BLOCK * hs.PHASE3_ROW_BYTES))
+    step10 = max(1, hs.PHASE3_BUDGET_BYTES // (kk10 * hs.BLOCK * hs.PHASE3_ROW_BYTES))
     chunk_queries = [v.tobytes() for v in truth[originals[1]]["sp"]]
     request_kernel = ROUTE_KERNELS[auto_phase1(len(chunk_queries), part.packed_dev.shape[1])]
     with uncounted():
         stats = path_kernel_stats("[product]", dev, part, chunk_queries, [
-            (request_kernel, len(chunk_queries), None), ("gather_rescore", min(step, len(chunk_queries)), kk),
+            (request_kernel, len(chunk_queries), None), ("gather_rescore", min(step10, len(chunk_queries)), kk10),
+            ("gather_rescore", min(step, len(chunk_queries)), kk),
         ])
+        stats["gather_rescore"][-1]["phase3_split_ms"] = phase3_split(
+            dev, part, chunk_queries[:step], kk, min(_pow2ceil(100 * 2 * index._opts.oversampling_factor), kk * hs.BLOCK))
     del part
 
     # Durability: flush, close, reopen; the same answers.
@@ -1723,6 +1858,56 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
     log(f"[product] {n_cpu}-asset copy opened with device='cpu': {compared} answers model_dump()-identical to the card's")
     log(f"[product] kernel launches of the path: {launches}")
     return launches, stats
+
+
+def phase3_split(dev, part, flat, kk, out_k):
+    """Device time of one slice of phases 2-3 (``hopper_scan._rescore_topk``)
+    on the path's partition ``part`` for the chunk queries ``flat``, split
+    by part, each timed alone on the same inputs: phase 2
+    (``topk_blocks_hier``), the candidate rows and validity,
+    ``gather_rescore`` (CUDA-graph replays; the rest by events over host-
+    paced calls), the score epilogue with ``torch.where``, ``torch.topk`` of
+    ``out_k`` and the row ``torch.gather``; then the whole slice, and the
+    device time by kernel of one slice under the profiler. Returns {part: ms}."""
+    nq = len(flat)
+    q_codes, q_lanes = pack_codes(flat)
+    q_packed = torch.from_numpy(q_codes.view(np.int32)).to(dev)
+    db, valid = part.packed_dev, part.valid_dev
+    min_lanes, q_scale = query_prefix(torch.from_numpy(q_lanes).to(dev), db.shape[1] * 32)
+    block_max = hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid)
+    total_blocks, width = db.shape[0] // hs.BLOCK, kk * hs.BLOCK
+    offsets = torch.arange(hs.BLOCK, device=dev)
+    blocks = topk_blocks_hier(block_max, kk)
+    block_ids = blocks.to(torch.int32)
+
+    def candidates():
+        rows = (blocks[:, :, None] * hs.BLOCK + offsets).reshape(nq, width)
+        return rows, valid.reshape(total_blocks, hs.BLOCK)[blocks].reshape(nq, width)
+
+    rows, cand_valid = candidates()
+    dots = hs.gather_rescore(q_packed, min_lanes, block_ids, db)
+
+    def epilogue():
+        return torch.where(cand_valid.to(torch.bool), 0.5 + dots * q_scale[:, None], hs.NEG_SCORE)
+
+    pos = torch.topk(epilogue(), out_k, dim=1).indices
+    scores = epilogue()
+    reps = 10 if dev.type == "cuda" else 1
+    ms = {
+        "phase 2 (topk_blocks_hier)": time_ms(lambda: topk_blocks_hier(block_max, kk), dev, reps),
+        "candidate rows and validity": time_ms(candidates, dev, reps),
+        "gather_rescore": time_ms(lambda: hs.gather_rescore(q_packed, min_lanes, block_ids, db), dev, reps, graph=True),
+        "score epilogue and torch.where": time_ms(epilogue, dev, reps),
+        "torch.topk": time_ms(lambda: torch.topk(scores, out_k, dim=1), dev, reps),
+        "row torch.gather": time_ms(lambda: torch.gather(rows, 1, pos), dev, reps),
+    }
+    whole = functools.partial(hs._rescore_topk, q_packed, min_lanes, q_scale, block_max, db, valid, kk, out_k)
+    ms["whole slice"] = time_ms(whole, dev, reps)
+    log(f"[product] phase 3 of one limit-100 slice (Q={nq}, kk={kk}, top-{out_k} of {width} columns), ms by part: "
+        + ", ".join(f"{name} {v:.4f}" for name, v in ms.items())
+        + f"; the parts sum to {sum(v for name, v in ms.items() if name != 'whole slice'):.4f}")
+    profile_device("[product phase-3 slice]", whole, dev, reps=3)
+    return ms
 
 
 def _experiment_data(dev, n, nq, seed):
@@ -1967,6 +2152,7 @@ def main():
     part_rows = {int(lv): int(c) for lv, c in zip(*np.unique(lanes, return_counts=True))}
     log(f"[data] {N_ROWS} codes, rows per lane count: {part_rows}")
     stats = phase_kernels(rng, dev, part_rows)
+    gather_ladder = phase_gather(rng, dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         slice_launches, idx, queries, oracle = phase_slice(rng, dev, codes, lanes, Path(tmp) / "config3")
         del codes, lanes
@@ -1993,6 +2179,17 @@ def main():
     exp_launches, exp_stats = phase_experiments(dev)
     launches.update(exp_launches)
     stats.update(exp_stats)
+    # The [gather] sweep: config 3's partitions, the ladder, config 4's and the product's shapes.
+    gather = stats["gather_rescore"]["by_form"] + gather_ladder + [
+        p for src in (path_stats, product_stats) for p in src["gather_rescore"]]
+    stats["gather_rescore"]["by_form"] = gather
+    stats["gather_rescore"]["launches_by_form"] = {label.strip("[]"): forms for label, forms in PATH_FORMS.items()}
+    log("[gather] point                                   Q     kk    reuse  query ms  block ms  bound ms  "
+        "query %  block %  route")
+    for p in gather:
+        log(f"[gather] {p['point'][:38]:38s} {p['q']:4d} {p['kk']:6d} {p['reuse']:8.3f} {p['query_ms']:9.4f} "
+            f"{p['block_ms']:9.4f} {p['bound_ms']:9.4f} {100 * p['query_share']:7.1f} {100 * p['block_share']:7.1f}  "
+            f"{p['form']}")
     log(f"[done] all phases passed in {time.perf_counter() - t_start:.1f} s")
 
     summary = []

@@ -20,7 +20,11 @@ hand-written Hopper kernels (port of the Pallas path of
   replaces the same two Pallas kernels where the batch is small.
 - :func:`gather_rescore` (phase 3, ``csrc/gather_rescore.cu``) replaces
   ``_gather_rescore_kernel`` and ``_gather_rescore_packed_kernel``: it reads
-  the packed rows, and returns the candidates in row order.
+  the packed rows, and returns the candidates in row order. It has two
+  forms, chosen by candidate reuse (:func:`gather_form`): query-major, one
+  thread block per (query, candidate block), and block-major, which sorts
+  the pairs by block on the card and reads each chosen block once for all
+  the queries that chose it (its flow is mirrored in ``ops/gather_layout.py``).
 
 The four phase-1 wrappers compute one function, bit for bit, and
 :func:`blockmax_topk_impl` takes any of them by name (``phase1``, a key of
@@ -44,7 +48,7 @@ import ctypes
 
 import torch
 
-from iscc_search_tpu_torch.ops import _build
+from iscc_search_tpu_torch.ops import _build, gather_layout
 from iscc_search_tpu_torch.ops.packing import MAX_LANES
 from iscc_search_tpu_torch.ops.pm1_scan import (
     NEG_SCORE,
@@ -61,8 +65,20 @@ UNPACK_CHUNK_ROWS = 65536  # rows per step of build_unpacked_db (bounds its memo
 PHASE3_BUDGET_BYTES = 1 << 30  # working set of one step of phases 2-3 (bounds their memory at large k)
 # Working bytes per candidate row in phases 2-3: row id (8), validity (2),
 # dot (4), score temporaries (12), the hierarchical top-k's gathered block
-# maxima (4, at most) and top-k outputs (2, amortized).
+# maxima (4, at most) and top-k outputs (2, amortized). The block-major
+# gather's workspace (12 bytes per candidate block, under 0.1 per row, and 4
+# per block of the partition: 3.5 MB at 100M rows) is not counted.
 PHASE3_ROW_BYTES = 32
+# gather_rescore's form by candidate reuse r = Q * kk / (cap / 128), the
+# (query, candidate block) pairs per block of the partition: block-major from
+# GATHER_BLOCK_REUSE[lanes] on, query-major below. Below a reuse of ~1 the
+# block-major form pays its inversion and gains nothing; on the [gather]
+# ladder of chip_smoke.py (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md section
+# 6) the two forms cross between a reuse of 0.9 and 2.7 at every width (at
+# 1.8 the faster is at most 1.06x ahead), so one threshold serves all
+# widths. The sweep fails when the table goes stale.
+GATHER_BLOCK_REUSE = {lanes: 2.0 for lanes in range(1, MAX_LANES + 1)}
+GATHER_FORMS = ("query", "block")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -75,6 +91,8 @@ _SIGNATURES = {
     "iscc_blockmax_small": _PHASE1,
     # q, q_stride, min_lanes, block_ids, nq, kk, db, lanes, out, stream
     "iscc_gather_rescore": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _P),
+    # q, q_stride, min_lanes, block_ids, nq, kk, db, nblocks, lanes, workspace, words, out, stream
+    "iscc_gather_rescore_blocks": (_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, ctypes.c_longlong, _P, _P),
     # The phase-1 experiments (iscc_search_tpu_torch/experiments):
     # epi, q, q_scale, nq, db, pen, nrows, db_wrap, out, stream
     "iscc_blockmax_variant": (_I, _P, _P, _I, _P, _P, _I, _I, _P, _P),
@@ -324,15 +342,27 @@ def gather_rescore_plain(q_packed, min_lanes, block_ids, db):
     return segmented_unpack_dots(masked_queries(q_packed, min_lanes, nbits), db, rows, nbits)
 
 
-def gather_rescore(q_packed, min_lanes, block_ids, db):
-    # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor) -> torch.Tensor
+def gather_form(nq, kk, nblocks, lanes):
+    # type: (int, int, int, int) -> str
+    """The form :func:`gather_rescore` takes for ``nq`` queries of ``kk``
+    candidate blocks each over a partition of ``nblocks`` 128-row blocks and
+    ``lanes`` lanes: ``"block"`` where the reuse ``nq * kk / nblocks``
+    reaches ``GATHER_BLOCK_REUSE[lanes]``, else ``"query"``."""
+    return "block" if nq * kk >= GATHER_BLOCK_REUSE[lanes] * nblocks else "query"
+
+
+def gather_rescore(q_packed, min_lanes, block_ids, db, form=None):
+    # type: (torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, str | None) -> torch.Tensor
     """
     Phase-3 exact rescore of each query's candidate blocks.
 
     :param q_packed: (Q, >= lanes) int32 packed queries
     :param min_lanes: (Q,) int32 common-prefix lanes, <= lanes
-    :param block_ids: (Q, kk) int32 candidate block ids, each < cap // 128
+    :param block_ids: (Q, kk) int32 candidate block ids, each < cap // 128;
+        they may repeat within a query
     :param db: (cap, lanes) int32 packed partition
+    :param form: ``None`` (the form :func:`gather_form` names), ``"query"``
+        or ``"block"``; on CPU tensors every form is the plain version
     :return: (Q, kk * 128) float32 raw ±1 dots; column c belongs to row
         ``block_ids[q, c // 128] * 128 + c % 128``
     """
@@ -341,18 +371,27 @@ def gather_rescore(q_packed, min_lanes, block_ids, db):
     _check(block_ids, "block_ids", torch.int32, 2)
     if block_ids.shape[0] != q_packed.shape[0]:
         raise ValueError("block_ids must be (Q, kk)")
+    if form is not None and form not in GATHER_FORMS:
+        raise ValueError(f"form must be None or one of {GATHER_FORMS}, got {form!r}")
     if _route([q_packed, min_lanes, block_ids, db]) == "cpu":
         return gather_rescore_plain(q_packed, min_lanes, block_ids, db)
     nq, kk = block_ids.shape
+    nblocks = cap // BLOCK
+    form = form or gather_form(nq, kk, nblocks, lanes)
     out = torch.empty((nq, kk * BLOCK), dtype=torch.float32, device=db.device)
-    launch(
-        gather_rescore, "iscc_gather_rescore", db.device, q_packed.data_ptr(), q_packed.stride(0),
-        min_lanes.data_ptr(), block_ids.data_ptr(), nq, kk, db.data_ptr(), lanes, out.data_ptr(),
-    )
+    args = (q_packed.data_ptr(), q_packed.stride(0), min_lanes.data_ptr(), block_ids.data_ptr(), nq, kk, db.data_ptr())
+    if form == "query":
+        launch(gather_rescore, "iscc_gather_rescore", db.device, *args, lanes, out.data_ptr())
+    else:
+        ws = torch.empty(gather_layout.workspace_words(nq * kk, nblocks), dtype=torch.int32, device=db.device)
+        launch(gather_rescore, "iscc_gather_rescore_blocks", db.device, *args, nblocks, lanes, ws.data_ptr(),
+               ws.numel(), out.data_ptr())
+    gather_rescore.by_form[form] += 1
     return out
 
 
 gather_rescore.launches = 0
+gather_rescore.by_form = dict.fromkeys(GATHER_FORMS, 0)  # calls that reached the card, by form
 
 
 # ------------------------------------------------------- exact two-phase top-k

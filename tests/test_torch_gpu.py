@@ -224,6 +224,87 @@ def test_gather_rescore_kernel_equals_plain(dev, nbits):
     assert torch.equal(got, hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db))
 
 
+def _gather_edge_cases(dev, lanes, seed):
+    """(label, q_packed (Q, 8), min_lanes, block_ids, db) at the edges of
+    both gather forms: Q=1, kk=1, block ids repeated within a query, one
+    block chosen by every query (a list longer than a segment), the
+    partition's last block, ``min_lanes`` 0 and short prefixes."""
+    rng = np.random.default_rng(seed)
+    nblocks = 40
+    db = torch.from_numpy(rng.integers(0, 2**32, (nblocks * 128, lanes), dtype=np.uint32).view(np.int32)).to(dev)
+
+    def queries(nq):
+        q = torch.from_numpy(rng.integers(0, 2**32, (nq, 8), dtype=np.uint32).view(np.int32)).to(dev)
+        ml = torch.from_numpy(rng.integers(0, lanes + 1, nq).astype(np.int32)).to(dev)
+        return q, ml
+
+    def ids(nq, kk, fill=None):
+        a = rng.integers(0, nblocks, (nq, kk)).astype(np.int32) if fill is None else np.full((nq, kk), fill, np.int32)
+        return torch.from_numpy(a).to(dev)
+
+    repeated = ids(9, 4).repeat(1, 3)
+    last = ids(30, 5)
+    last[:, 2] = nblocks - 1
+    for label, nq, block_ids in (
+        ("Q=1", 1, ids(1, 16)), ("kk=1", 13, ids(13, 1)), ("repeats", 9, repeated),
+        ("one block by all", 77, ids(77, 3, fill=17)), ("last block", 30, last), ("random", 77, ids(77, 16)),
+    ):
+        yield (label, *queries(nq), block_ids.contiguous(), db)
+
+
+@pytest.mark.parametrize("lanes", range(1, 9))
+def test_gather_rescore_forms_equal_plain_and_each_other(dev, lanes):
+    """Both forms of ``csrc/gather_rescore.cu`` and the route, ``torch.equal``
+    to the plain version and to each other at the edge cases; each call
+    counts one launch, and ``by_form`` the form it took."""
+    for label, q_packed, min_lanes, block_ids, db in _gather_edge_cases(dev, lanes, seed=lanes):
+        want = hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
+        got = {}
+        for form in (*hs.GATHER_FORMS, None):
+            before = hs.gather_rescore.launches, dict(hs.gather_rescore.by_form)
+            got[form] = hs.gather_rescore(q_packed, min_lanes, block_ids, db, form=form)
+            torch.cuda.synchronize()
+            took = form or hs.gather_form(*block_ids.shape, db.shape[0] // 128, lanes)
+            assert hs.gather_rescore.launches == before[0] + 1, label
+            assert hs.gather_rescore.by_form == {**before[1], took: before[1][took] + 1}, label
+            assert torch.equal(got[form], want), (label, form)
+        assert torch.equal(got["query"], got["block"]), label
+
+
+def test_gather_route_takes_each_form_by_reuse(dev):
+    """High reuse (77 x 16 pairs over 40 blocks) takes the block-major form,
+    low reuse (4 x 16 pairs over 4,096 blocks) the query-major form."""
+    rng = np.random.default_rng(21)
+    for nblocks, nq, form in ((40, 77, "block"), (4096, 4, "query")):
+        db = torch.from_numpy(rng.integers(0, 2**32, (nblocks * 128, 4), dtype=np.uint32).view(np.int32)).to(dev)
+        q_packed = torch.from_numpy(rng.integers(0, 2**32, (nq, 8), dtype=np.uint32).view(np.int32)).to(dev)
+        min_lanes = torch.full((nq,), 4, dtype=torch.int32, device=dev)
+        block_ids = torch.from_numpy(rng.integers(0, nblocks, (nq, 16)).astype(np.int32)).to(dev)
+        assert hs.gather_form(nq, 16, nblocks, 4) == form
+        before = dict(hs.gather_rescore.by_form)
+        got = hs.gather_rescore(q_packed, min_lanes, block_ids, db)
+        torch.cuda.synchronize()
+        assert hs.gather_rescore.by_form[form] == before[form] + 1
+        assert torch.equal(got, hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db))
+
+
+def test_gather_block_form_replays_in_a_cuda_graph(dev):
+    """The block-major form zeroes its counts on the stream: a captured
+    call replays to the same result every time."""
+    q_packed, min_lanes, _, db, _, block_ids = _case(dev, 128, seed=8)
+    want = hs.gather_rescore_plain(q_packed, min_lanes, block_ids, db)
+    hs.gather_rescore(q_packed, min_lanes, block_ids, db, form="block")  # warm: builds and loads
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = hs.gather_rescore(q_packed, min_lanes, block_ids, db, form="block")
+    for _ in range(3):
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+
+
 def test_kernels_take_a_strided_query_matrix(dev):
     """q_packed wider than the partition (the engine passes (Q, 8) queries
     to every partition): the kernels read only the first ``lanes`` words."""
