@@ -82,11 +82,14 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 8. experiments (run last) — the phase-1 experiment entry points of
    ``iscc_search_tpu_torch.experiments`` (TPU kernels 8-11): each kernel
    against its plain version (``torch.equal``) on edge cases (Q=77,
-   192-bit prefixes, tombstones, a dead block; kernels 10 and 11 also
-   against ``blockmax`` on the same packed rows), then each module's
-   ``main()`` at the script's own size with the counters set to 0 just
-   before and read just after, then each kernel against its plain version
-   at that size, with the plain version's time.
+   192-bit prefixes, tombstones, a dead block; kernel 8 also on penalties
+   that take its per-element path; kernels 10 and 11 also against
+   ``blockmax`` on the same packed rows), then each module's ``main()`` at
+   the script's own size with the counters set to 0 just before and read
+   just after, then each kernel against its plain version at that size,
+   with the plain version's time. Each kernel-8 launch is logged with its
+   bound and share, beside ``base`` and, for the bf16-unit probes, the bf16
+   floor; with the share of blocks on its fast path.
 
 9. simprint — BASELINE config 4 at the engine level: 1,000,000 assets x
    100 random 128-bit chunk simprints (100,000,000 rows, keys shaped as
@@ -191,7 +194,7 @@ from iscc_search_tpu_torch.indexes.tpu import TpuIndex
 from iscc_search_tpu_torch.models import IsccID, IsccUnit
 from iscc_search_tpu_torch.ops import _build, bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
-from iscc_search_tpu_torch.ops import wgmma_layout
+from iscc_search_tpu_torch.ops import variant_layout, wgmma_layout
 from iscc_search_tpu_torch.ops.nphd import hamming_scores, nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix, topk_blocks_hier
@@ -291,6 +294,7 @@ GATHER_REPS = 20  # CUDA-graph-captured calls per form and [gather] point
 GATHER_Q, GATHER_LADDER_KK = 64, (128, 256, 512, 768, 1024, 4096)
 HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_S = 1979e12
+BF16_OPS_S = 989e12  # dense bf16 tensor-core peak: the floor of the kernel-8 variants that dot on the bf16 units
 POPC_PER_CLOCK_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
 CARD = {}  # filled by phase_device: SMs and maximum SM clock
 PATH_FORMS = {}  # path label -> gather_rescore calls by form, read beside its launches
@@ -1924,16 +1928,33 @@ def _experiment_data(dev, n, nq, seed):
     return packed, valid, q_packed, min_lanes, q_scale, masked_queries(q_packed, min_lanes, 256).to(torch.int8)
 
 
-def _variant_pen(name, orient, valid):
-    pen16 = torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16)
-    return valid[None, :] if name == "u8max" else (pen16[:, None] if orient == "col" else pen16[None, :])
+def _variant_pen(name, orient, valid, general=False):
+    """The penalty row of a kernel-8 variant: 0 / -65536 from the validity
+    (the validity itself for ``u8max``), or random values that take the
+    kernel's per-element path (bf16 within 512 of each other; any uint8)."""
+    n = valid.shape[0]
+    if general:
+        gen = torch.Generator(device=valid.device).manual_seed(n)
+        pen = (torch.randint(0, 256, (n,), dtype=torch.uint8, device=valid.device, generator=gen) if name == "u8max"
+               else ((torch.rand(n, device=valid.device, generator=gen) - 0.5) * 400).to(torch.bfloat16))
+    else:
+        pen = valid if name == "u8max" else torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16)
+    return pen[:, None] if orient == "col" else pen[None, :]
 
 
-def _experiment_cases(dev, n, nq, seed, err, label, timed, which=(8, 9, 10)):
+def _fast_share(name, pen):
+    """The share of blocks whose penalties take the fast path of
+    ``csrc/blockmax_variants.cu`` (the rule of ``ops/variant_layout.py``)."""
+    bits = pen if pen.dtype == torch.uint8 else pen.view(torch.int16)
+    return variant_layout.fast_share(ex8.variant_spec(name)[0], bits.cpu().numpy())
+
+
+def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10)):
     """The kernels ``which`` of 8-11 (10 stands for 10 and 11) against
     their plain versions on one data set (kernels 10 and 11 also against
     ``blockmax`` on the packed rows); ``timed``: also the plain versions'
-    times (the kernels' come from the entry points). Returns {kernel or
+    times (the kernels' come from the entry points). ``fast`` gets kernel
+    8's share of fast-path blocks per penalty kind. Returns {kernel or
     variant: plain ms}."""
     packed, valid, q_packed, min_lanes, q_scale, q = _experiment_data(dev, n, nq, seed)
     qs = q_scale[:, None].contiguous()
@@ -1942,16 +1963,22 @@ def _experiment_cases(dev, n, nq, seed, err, label, timed, which=(8, 9, 10)):
     if 8 in which:
         db = hs.build_unpacked_db(packed, 256)
         first = {}  # launch key -> first name: names of one key share a plain time
-        for name in ex8.NAMES:
-            fn, orient = ex8.make_variant(name, n, nq)
-            args = (q, qs, db, _variant_pen(name, orient, valid))
-            _compare(f"blockmax_variant {name} {label}", fn(*args), ex8.blockmax_variant_plain(name, *args), err)
-            key = ex8.launch_key(name)
-            if timed and key in first:
-                plain[name] = plain[first[key]]
-            elif timed:
-                first[key] = name
-                plain[name] = time_ms(functools.partial(ex8.blockmax_variant_plain, name, *args), dev, 1)
+        # Edge cases: 0 / -65536 penalties (the fast path) and random ones (the per-element path).
+        for general in (False, True) if label == "edge" else (False,):
+            kind = "per-element penalties" if general else "tombstone penalties"
+            for name in ex8.NAMES:
+                fn, orient = ex8.make_variant(name, n, nq)
+                args = (q, qs, db, _variant_pen(name, orient, valid, general))
+                _compare(f"blockmax_variant {name} {label}, {kind}", fn(*args), ex8.blockmax_variant_plain(name, *args),
+                         err)
+                key = ex8.launch_key(name)
+                if timed and key in first:
+                    plain[name] = plain[first[key]]
+                elif timed:
+                    first[key] = name
+                    plain[name] = time_ms(functools.partial(ex8.blockmax_variant_plain, name, *args), dev, 1)
+            for name in ("bf16", "u8max"):
+                fast[f"{name}, {label}, {kind}"] = _fast_share(name, _variant_pen(name, "row", valid, general))
         del db
     if 9 in which:
         db_i8 = hs.build_unpacked_db(packed, 256)
@@ -2000,12 +2027,13 @@ def phase_experiments(dev):
     """TPU kernels 8-11 through the experiment entry points (module
     docstring, phase 6)."""
     err = dict.fromkeys(EXPERIMENT_KERNELS, 0.0)
+    fast = {}  # kernel-8 data set -> share of blocks on the fast path
     t0 = time.perf_counter()
-    _experiment_cases(dev, 32768, 77, seed=6, err=err, label="edge", timed=False)
+    _experiment_cases(dev, 32768, 77, seed=6, err=err, fast=fast, label="edge", timed=False)
     log(f"[experiments] edge cases (N=32768, Q=77, 192-bit prefixes, tombstones, a dead block): kernel == plain "
-        f"for all {len(ex8.NAMES)} variants of kernel 8, int4_dot and int4_probe (Q=8 and 77), blockmax_bitplane "
-        f"and blockmax_subword u8/u16; kernel 10 == blockmax on blocks with a valid row, kernel 11 == blockmax "
-        f"everywhere ({time.perf_counter() - t0:.1f} s)")
+        f"for all {len(ex8.NAMES)} variants of kernel 8 (0/-65536 penalties and per-element ones), int4_dot and "
+        f"int4_probe (Q=8 and 77), blockmax_bitplane and blockmax_subword u8/u16; kernel 10 == blockmax on blocks "
+        f"with a valid row, kernel 11 == blockmax everywhere ({time.perf_counter() - t0:.1f} s)")
 
     # The entry points at the scripts' sizes, counters at 0 just before.
     for fn in WRAPPERS.values():
@@ -2023,10 +2051,11 @@ def phase_experiments(dev):
             raise AssertionError(f"the experiment entry points never launched the {name} kernel")
 
     # Kernel == plain at the scripts' sizes, and the plain versions' times.
-    plain8 = _experiment_cases(dev, N8, Q8, seed=8, err=err, label=f"N={N8}", timed=True, which=(8,))
-    plain9 = _experiment_cases(dev, N9, Q9, seed=9, err=err, label=f"N={N9}", timed=True, which=(9,))
-    plain9_large = _experiment_cases(dev, N9_LARGE, Q9, seed=9, err=err, label=f"N={N9_LARGE}", timed=True, which=(9,))
-    plain10 = _experiment_cases(dev, N10, Q10, seed=10, err=err, label=f"N={N10}", timed=True, which=(10,))
+    plain8 = _experiment_cases(dev, N8, Q8, seed=8, err=err, fast=fast, label=f"N={N8}", timed=True, which=(8,))
+    plain9 = _experiment_cases(dev, N9, Q9, seed=9, err=err, fast=fast, label=f"N={N9}", timed=True, which=(9,))
+    plain9_large = _experiment_cases(dev, N9_LARGE, Q9, seed=9, err=err, fast=fast, label=f"N={N9_LARGE}", timed=True,
+                                     which=(9,))
+    plain10 = _experiment_cases(dev, N10, Q10, seed=10, err=err, fast=fast, label=f"N={N10}", timed=True, which=(10,))
     log(f"[experiments] kernel == plain at the scripts' sizes; plain ms: kernel 8 (N={N8}, Q={Q8}) "
         + ", ".join(f"{k} {v:.4f}" for k, v in plain8.items() if k in ex8.NAMES)
         + f"; int4 N={N9} Q={Q9}: dot {plain9['int4_dot']:.4f}, probe {plain9['int4_probe']:.4f}, "
@@ -2056,12 +2085,25 @@ def phase_experiments(dev):
                        "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
                        "library_ms": plain9["library"] if name == "int4_dot" else None}
     variants = stats["blockmax_variant"]["variants"] = {}
+    bf16_floor = 2 * Q8 * N8 * 256 / BF16_OPS_S * 1e3
+    log(f"[experiments] blockmax_variant: base (blockmax_mma_unpacked, the same twin and queries) "
+        f"{res8['base']:.4f} ms; the variants on the bf16 units cannot beat {bf16_floor:.4f} ms "
+        f"(their dots at the bf16 peak)")
     for name in ex8.NAMES:
         bound_ms, bound_by = variant_bound(name, N8, Q8)
-        variants[name] = {"ms": res8[name], "plain_ms": plain8[name], "bound_ms": bound_ms, "bound_by": bound_by}
-        log(f"[experiments] blockmax_variant {name}: {res8[name]:.4f} ms (plain {plain8[name]:.4f} ms, "
-            f"bound {bound_ms:.4f} ms by {bound_by})")
+        variants[name] = {"ms": res8[name], "plain_ms": plain8[name], "bound_ms": bound_ms, "bound_by": bound_by,
+                          "share": bound_ms / res8[name]}
+        floor = ""
+        if ex8.variant_spec(name)[0] in (ex8.EPI_BF16DOT, ex8.EPI_DOTONLY_BF16):
+            variants[name]["bf16_floor_ms"] = bf16_floor
+            floor = f", bf16 floor {bf16_floor:.4f} ms ({100 * bf16_floor / res8[name]:.1f}%)"
+        log(f"[experiments] blockmax_variant {name}: {res8[name]:.4f} ms, {res8[name] / res8['base']:.2f}x base "
+            f"(plain {plain8[name]:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / res8[name]:.1f}% "
+            f"of it{floor})")
     stats["blockmax_variant"]["base_ms"] = res8["base"]
+    stats["blockmax_variant"]["fast_share"] = fast
+    log("[experiments] blockmax_variant, share of blocks on the fast path (one element per query and block): "
+        + "; ".join(f"{k} {v:.4f}" for k, v in fast.items()))
     for name in ("int4_dot", "int4_probe"):
         stats[name][f"at_n{N9_LARGE}"] = {"ms": res9_large[name], "plain_ms": plain9_large[name]}
     log(f"[experiments] int4_dot, N={N9} / N={N9_LARGE}: {res9['int4_dot']:.4f} / {res9_large['int4_dot']:.4f} ms; "

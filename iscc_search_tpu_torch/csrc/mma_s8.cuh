@@ -1,9 +1,8 @@
-// The int8 tensor-core tile of blockmax_mma.cu, blockmax_variants.cu and
-// blockmax_bitplane.cu: one 128-row block staged in shared memory as int8,
-// each row padded by 16 bytes so that the B fragment loads hit 32 distinct
-// banks, dotted over its k-steps by mma.sync.m16n8k32 (dot_tile, any row
-// width); for 256-bit rows, A fragments read straight from (Q, 256) int8
-// queries (load_a).
+// The int8 tensor-core tile of blockmax_bitplane.cu: one 128-row block
+// staged in shared memory as int8, each row padded by 16 bytes so that the B
+// fragment loads hit 32 distinct banks, dotted over its k-steps by
+// mma.sync.m16n8k32 (dot_tile, any row width); for 256-bit rows, A fragments
+// read straight from (Q, 256) int8 queries (load_a).
 //
 // mma.sync.m16n8k32 s8 fragments, lane = 4 g + t: A regs 0 / 1 hold k
 // 4t..4t+3 of query rows g / g + 8, regs 2 / 3 k 16 + 4t...; B regs 0 / 1

@@ -5,7 +5,8 @@ of phase 1 on the card and checks them against a reference.
 
 - :mod:`.exp_kernels` (``benchmarks/exp_kernels.py``): epilogue width,
   orientation and tiling probes over the ±1 int8 twin
-  (``csrc/blockmax_variants.cu``);
+  (``csrc/blockmax_variants.cu``; :mod:`.exp_variant_ablate` times that
+  kernel with parts left out);
 - :mod:`.exp_int4` (``benchmarks/exp_int4.py``): the int4 twin, dotted on
   the int8 tensor cores, nibbles shifted into bytes (``csrc/int4_dot.cu``);
 - :mod:`.exp_bitplane_int8` (``benchmarks/exp_bitplane_int8.py``): 0/1 bit
