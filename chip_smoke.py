@@ -88,8 +88,9 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    the script's own size with the counters set to 0 just before and read
    just after, then each kernel against its plain version at that size,
    with the plain version's time. Each kernel-8 launch is logged with its
-   bound and share, beside ``base`` and, for the bf16-unit probes, the bf16
-   floor; with the share of blocks on its fast path.
+   bound and share, beside ``base`` and, for the bf16-unit probes, the
+   floor computed at the bf16 peak; the blocks that took its fast path are
+   counted by the kernel and must equal the plan's rule.
 
 9. simprint — BASELINE config 4 at the engine level: 1,000,000 assets x
    100 random 128-bit chunk simprints (100,000,000 rows, keys shaped as
@@ -190,11 +191,12 @@ from iscc_search_tpu_torch.experiments import time_ms
 from iscc_search_tpu_torch.experiments import exp_bitplane_u8 as ex11
 from iscc_search_tpu_torch.experiments import exp_int4 as ex9
 from iscc_search_tpu_torch.experiments import exp_kernels as ex8
+from iscc_search_tpu_torch.experiments import variant_layout
 from iscc_search_tpu_torch.indexes.tpu import TpuIndex
 from iscc_search_tpu_torch.models import IsccID, IsccUnit
 from iscc_search_tpu_torch.ops import _build, bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
-from iscc_search_tpu_torch.ops import variant_layout, wgmma_layout
+from iscc_search_tpu_torch.ops import wgmma_layout
 from iscc_search_tpu_torch.ops.nphd import hamming_scores, nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix, topk_blocks_hier
@@ -1928,25 +1930,22 @@ def _experiment_data(dev, n, nq, seed):
     return packed, valid, q_packed, min_lanes, q_scale, masked_queries(q_packed, min_lanes, 256).to(torch.int8)
 
 
-def _variant_pen(name, orient, valid, general=False):
-    """The penalty row of a kernel-8 variant: 0 / -65536 from the validity
-    (the validity itself for ``u8max``), or random values that take the
-    kernel's per-element path (bf16 within 512 of each other; any uint8)."""
-    n = valid.shape[0]
-    if general:
-        gen = torch.Generator(device=valid.device).manual_seed(n)
-        pen = (torch.randint(0, 256, (n,), dtype=torch.uint8, device=valid.device, generator=gen) if name == "u8max"
-               else ((torch.rand(n, device=valid.device, generator=gen) - 0.5) * 400).to(torch.bfloat16))
-    else:
-        pen = valid if name == "u8max" else torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16)
-    return pen[:, None] if orient == "col" else pen[None, :]
-
-
-def _fast_share(name, pen):
-    """The share of blocks whose penalties take the fast path of
-    ``csrc/blockmax_variants.cu`` (the rule of ``ops/variant_layout.py``)."""
-    bits = pen if pen.dtype == torch.uint8 else pen.view(torch.int16)
-    return variant_layout.fast_share(ex8.variant_spec(name)[0], bits.cpu().numpy())
+def _count_paths(name, label, kind, pen, nq, fast):
+    """Kernel 8's path counts of the launch just made, as the kernel counted
+    them (``exp_kernels.variant_path_blocks``), against the plan's rule on
+    the same penalties (``experiments/variant_layout.py`` ``path_blocks``:
+    every block once per query chunk, the fast ones by the rule); recorded
+    in ``fast`` for the launches that finish block maxima."""
+    counted = ex8.variant_path_blocks(pen.device)
+    epi = ex8.variant_spec(name)[0]
+    bits = pen.reshape(-1) if pen.dtype == torch.uint8 else pen.reshape(-1).view(torch.int16)
+    planned = variant_layout.path_blocks(epi, bits.cpu().numpy(), nq)
+    if counted != planned:
+        raise AssertionError(f"blockmax_variant {name} {label}, {kind}: the kernel counted (finished, fast) blocks "
+                             f"{counted}, the plan {planned}")
+    if planned[0]:
+        fast[f"{name}, {label}, {kind}"] = {"blocks": counted[0], "fast_blocks": counted[1],
+                                            "share": counted[1] / counted[0]}
 
 
 def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10)):
@@ -1954,8 +1953,8 @@ def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10
     their plain versions on one data set (kernels 10 and 11 also against
     ``blockmax`` on the packed rows); ``timed``: also the plain versions'
     times (the kernels' come from the entry points). ``fast`` gets kernel
-    8's share of fast-path blocks per penalty kind. Returns {kernel or
-    variant: plain ms}."""
+    8's counted path shares per launch and penalty kind (``_count_paths``).
+    Returns {kernel or variant: plain ms}."""
     packed, valid, q_packed, min_lanes, q_scale, q = _experiment_data(dev, n, nq, seed)
     qs = q_scale[:, None].contiguous()
     plain = {}
@@ -1966,19 +1965,22 @@ def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10
         # Edge cases: 0 / -65536 penalties (the fast path) and random ones (the per-element path).
         for general in (False, True) if label == "edge" else (False,):
             kind = "per-element penalties" if general else "tombstone penalties"
+            paths_read = set()  # launch keys whose path counts were read
             for name in ex8.NAMES:
-                fn, orient = ex8.make_variant(name, n, nq)
-                args = (q, qs, db, _variant_pen(name, orient, valid, general))
-                _compare(f"blockmax_variant {name} {label}, {kind}", fn(*args), ex8.blockmax_variant_plain(name, *args),
-                         err)
+                fn, _ = ex8.make_variant(name, n, nq)
+                args = (q, qs, db, ex8.variant_penalties(name, valid, general))
                 key = ex8.launch_key(name)
+                ex8.variant_path_blocks(dev)  # cleared
+                got = fn(*args)
+                if key not in paths_read:
+                    paths_read.add(key)
+                    _count_paths(name, label, kind, args[3], nq, fast)
+                _compare(f"blockmax_variant {name} {label}, {kind}", got, ex8.blockmax_variant_plain(name, *args), err)
                 if timed and key in first:
                     plain[name] = plain[first[key]]
                 elif timed:
                     first[key] = name
                     plain[name] = time_ms(functools.partial(ex8.blockmax_variant_plain, name, *args), dev, 1)
-            for name in ("bf16", "u8max"):
-                fast[f"{name}, {label}, {kind}"] = _fast_share(name, _variant_pen(name, "row", valid, general))
         del db
     if 9 in which:
         db_i8 = hs.build_unpacked_db(packed, 256)
@@ -2027,7 +2029,7 @@ def phase_experiments(dev):
     """TPU kernels 8-11 through the experiment entry points (module
     docstring, phase 6)."""
     err = dict.fromkeys(EXPERIMENT_KERNELS, 0.0)
-    fast = {}  # kernel-8 data set -> share of blocks on the fast path
+    fast = {}  # kernel-8 launch and data set -> blocks counted on each path
     t0 = time.perf_counter()
     _experiment_cases(dev, 32768, 77, seed=6, err=err, fast=fast, label="edge", timed=False)
     log(f"[experiments] edge cases (N=32768, Q=77, 192-bit prefixes, tombstones, a dead block): kernel == plain "
@@ -2088,22 +2090,22 @@ def phase_experiments(dev):
     bf16_floor = 2 * Q8 * N8 * 256 / BF16_OPS_S * 1e3
     log(f"[experiments] blockmax_variant: base (blockmax_mma_unpacked, the same twin and queries) "
         f"{res8['base']:.4f} ms; the variants on the bf16 units cannot beat {bf16_floor:.4f} ms "
-        f"(their dots at the bf16 peak)")
+        f"(a floor computed from their dots at the bf16 peak, not measured)")
     for name in ex8.NAMES:
         bound_ms, bound_by = variant_bound(name, N8, Q8)
         variants[name] = {"ms": res8[name], "plain_ms": plain8[name], "bound_ms": bound_ms, "bound_by": bound_by,
                           "share": bound_ms / res8[name]}
         floor = ""
         if ex8.variant_spec(name)[0] in (ex8.EPI_BF16DOT, ex8.EPI_DOTONLY_BF16):
-            variants[name]["bf16_floor_ms"] = bf16_floor
-            floor = f", bf16 floor {bf16_floor:.4f} ms ({100 * bf16_floor / res8[name]:.1f}%)"
+            floor = f"; the computed bf16-peak floor {bf16_floor:.4f} ms is {100 * bf16_floor / res8[name]:.1f}% of its time"
         log(f"[experiments] blockmax_variant {name}: {res8[name]:.4f} ms, {res8[name] / res8['base']:.2f}x base "
             f"(plain {plain8[name]:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / res8[name]:.1f}% "
             f"of it{floor})")
     stats["blockmax_variant"]["base_ms"] = res8["base"]
-    stats["blockmax_variant"]["fast_share"] = fast
-    log("[experiments] blockmax_variant, share of blocks on the fast path (one element per query and block): "
-        + "; ".join(f"{k} {v:.4f}" for k, v in fast.items()))
+    stats["blockmax_variant"]["fast_path"] = fast
+    log("[experiments] blockmax_variant, blocks on the fast path (one element per query and block) of the blocks "
+        "the kernel finished, as it counted them (each equal to the plan's rule): "
+        + "; ".join(f"{k} {v['fast_blocks']} of {v['blocks']} ({v['share']:.4f})" for k, v in fast.items()))
     for name in ("int4_dot", "int4_probe"):
         stats[name][f"at_n{N9_LARGE}"] = {"ms": res9_large[name], "plain_ms": plain9_large[name]}
     log(f"[experiments] int4_dot, N={N9} / N={N9_LARGE}: {res9['int4_dot']:.4f} / {res9_large['int4_dot']:.4f} ms; "

@@ -27,7 +27,7 @@
 // m is a max over the 128 rows of a block, fma(m) = __fmaf_rn(m, qs, 0.5),
 // the one rounding of the Pallas kernels in interpret mode. db_wrap != 0
 // reads db row r % db_wrap for row r (the *_nodma probes: chunk 0 only).
-// ops/variant_layout.py mirrors the flow below in numpy.
+// experiments/variant_layout.py mirrors the flow below in numpy.
 //
 // Shape: the loop of blockmax_mma.cu's twin entry (blockmax_wgmma_kernel<8,
 // false>). The host launches one persistent grid per chunk of up to 256
@@ -155,6 +155,23 @@ __host__ __device__ constexpr bool sub_tile(int epi) { return epi == kConsume ||
 // Block maxima gathered in shared memory, written as sectors of the (nq, nblocks) output.
 __host__ __device__ constexpr bool gathers(int epi) {
   return epi == kBf16 || epi == kBf16NoPen || epi == kU8Max || epi == kBf16Dot;
+}
+// A block maximum per (query, block), on the fast or the per-element path (finish_max).
+__host__ __device__ constexpr bool finishes_max(int epi) { return gathers(epi) || epi == kTrans; }
+
+// The blocks whose maxima finish_max finished, and those of them it
+// finished on the fast path, summed over launches until
+// iscc_blockmax_variant_paths reads and clears them: the fast-path share is
+// counted where the kernel branches, not predicted from the penalties. One
+// thread per team counts its blocks in registers and adds them once, as
+// its thread block ends.
+__device__ unsigned long long g_path_blocks[2];
+
+__device__ __forceinline__ void add_path_blocks(unsigned finished, unsigned took_fast) {
+  if (finished) {
+    atomicAdd(&g_path_blocks[0], (unsigned long long)finished);
+    atomicAdd(&g_path_blocks[1], (unsigned long long)took_fast);
+  }
 }
 
 // ---------------------------------------------------- wgmma, TMA, barriers
@@ -737,6 +754,7 @@ variant_s8_kernel(Args a, const __grid_constant__ CUtensorMap rows_map) {
       for (int c = 0; c < 8; ++c) cls[k][h][c] = -INFINITY;
   int acc[64];
   int sink = 0;  // kCutEpilogue only
+  unsigned finished = 0, took_fast = 0;  // this team's blocks (g_path_blocks), thread t = 0
 
   for (int step = 0; step < sh.steps; ++step) {
     const int block = sh.block_of(step);
@@ -796,6 +814,10 @@ variant_s8_kernel(Args a, const __grid_constant__ CUtensorMap rows_map) {
         }
       }
     }
+    if (finishes_max(EPI) && real && !kCutEpilogue && t == 0) {
+      ++finished;
+      took_fast += fast;
+    }
     if (sub_tile(EPI) && real && !kCutEpilogue && block % kGroupBlocks == kGroupBlocks - 1) {
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
@@ -816,6 +838,7 @@ variant_s8_kernel(Args a, const __grid_constant__ CUtensorMap rows_map) {
   }
   // The fetch begun at the last step, unused, lands before the thread block ends.
   if (t == 0 && !kCutStaging) mbar_wait(s_bar + 8 * (sh.steps & 1), (sh.steps >> 1) & 1);
+  if (t == 0) add_path_blocks(finished, took_fast);
   if (kCutEpilogue && sink == INT_MIN) a.out[0] = 0.f;
 }
 
@@ -884,6 +907,7 @@ __global__ void __launch_bounds__(kTeamThreads, 1) variant_bf16_kernel(Args a) {
   stage.peek(a.pen, sh.block_of(1), lane);
   float acc[64];
   int sink = 0;  // kCutEpilogue only
+  unsigned finished = 0, took_fast = 0;  // the blocks of g_path_blocks, thread 0
 
   for (int step = 0; step < sh.steps; ++step) {
     const int block = sh.block_of(step);
@@ -939,9 +963,14 @@ __global__ void __launch_bounds__(kTeamThreads, 1) variant_bf16_kernel(Args a) {
         if (k < my_tiles) flush_gather(s_out, a, block, slot, first_slot, (member + 2 * k) * kTileQueries);
       }
     }
+    if (finishes_max(EPI) && real && !kCutEpilogue && t == 0) {
+      ++finished;
+      took_fast += fast;
+    }
     fast = next_fast;
     pmax = next_pmax;
   }
+  if (t == 0) add_path_blocks(finished, took_fast);
   if (kCutEpilogue && sink == INT_MIN) a.out[0] = 0.f;
 }
 
@@ -1020,7 +1049,9 @@ int launch_epi(const int8_t* q, const float* qs, int nq, const int8_t* db, const
 // 128) f32, or (nrows / 128, nq) for kTrans. nrows % 128 == 0 (% 4096 for
 // the sub-tile epilogues); db_wrap = 0, or a multiple of 128: row r reads db
 // row r % db_wrap. Exact for ±1 rows and ±1/0 queries (every dot in [-256,
-// 256]). Returns cudaGetLastError() after the launches (0 = launched).
+// 256]); for other values, or NaN penalties (a maximum of fmaxf drops a NaN,
+// where the plain version's keeps it), the output is undefined. Returns
+// cudaGetLastError() after the launches (0 = launched).
 extern "C" int iscc_blockmax_variant(int epi, const void* q, const void* qs, int nq, const void* db,
                                      const void* pen, int nrows, int db_wrap, void* out,
                                      void* stream) {
@@ -1052,4 +1083,17 @@ extern "C" int iscc_blockmax_variant(int epi, const void* q, const void* qs, int
       return (int)cudaErrorInvalidValue;
   }
 #undef ISCC_EPI_CASE
+}
+
+// counts[0], counts[1] (uint64) <- g_path_blocks on the current device (the
+// blocks whose maxima the launches since the last call finished, and those
+// of them on the fast path), then clears them; waits for the stream.
+extern "C" int iscc_blockmax_variant_paths(void* counts, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  void* dev_counts = nullptr;
+  cudaError_t err = cudaGetSymbolAddress(&dev_counts, g_path_blocks);
+  if (err == cudaSuccess) err = cudaMemcpyAsync(counts, dev_counts, sizeof(g_path_blocks), cudaMemcpyDeviceToHost, s);
+  if (err == cudaSuccess) err = cudaMemsetAsync(dev_counts, 0, sizeof(g_path_blocks), s);
+  if (err == cudaSuccess) err = cudaStreamSynchronize(s);
+  return (int)err;
 }

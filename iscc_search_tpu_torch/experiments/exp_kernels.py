@@ -37,6 +37,7 @@ Usage: ``python -m iscc_search_tpu_torch.experiments.exp_kernels [--n ROWS]
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 
@@ -169,6 +170,11 @@ def blockmax_variant(name, q, qs, db, pen):
     for CPU tensors, the ``csrc/blockmax_variants.cu`` kernel for CUDA
     tensors (counted on ``blockmax_variant.launches``).
 
+    The kernel holds to the plain version only within this contract: every
+    dot in [-256, 256], and no NaN penalty. For values outside ±1 / ±1/0,
+    or a NaN penalty, its output is undefined (its maxima are taken by
+    ``fmaxf``, which drops a NaN that the plain version's ``amax`` keeps).
+
     :param q: (Q, 256) int8 ±1/0 queries
     :param qs: (Q, 1) float32 scales
     :param db: (N, 256) int8 ±1 twin, N a multiple of the variant's chunk
@@ -187,6 +193,39 @@ def blockmax_variant(name, q, qs, db, pen):
 
 
 blockmax_variant.launches = 0
+
+
+def variant_path_blocks(device):
+    # type: (torch.device) -> tuple[int, int]
+    """(blocks whose maxima the kernel finished, those of them on the fast
+    path) over the CUDA launches on ``device`` since the last call, as the
+    kernel counted them where it branches (``bf16``, ``bf16_nopen``,
+    ``trans``, ``u8max``, ``bf16dot``; a block counts once per query chunk);
+    the counts are then cleared."""
+    counts = (ctypes.c_ulonglong * 2)()
+    with torch.cuda.device(device):
+        err = hs._entry("iscc_blockmax_variant_paths")(ctypes.addressof(counts), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"reading the blockmax_variant path counts failed: cudaError {err}")
+    return int(counts[0]), int(counts[1])
+
+
+def variant_penalties(name, valid, general=False):
+    # type: (str, torch.Tensor, bool) -> torch.Tensor
+    """The penalty argument of variant ``name`` from (N,) uint8 validity:
+    0 / -65536 bfloat16 (the validity itself for ``u8max``), or with
+    ``general`` random values, seeded by N, that take the kernel's
+    per-element path (bfloat16 within 512 of each other; any uint8). Shaped
+    (1, N), or (N, 1) for ``trans*``."""
+    epi, _, _, orient = variant_spec(name)
+    n = valid.shape[0]
+    if general:
+        gen = torch.Generator(device=valid.device).manual_seed(n)
+        pen = (torch.randint(0, 256, (n,), dtype=torch.uint8, device=valid.device, generator=gen)
+               if epi == EPI_U8MAX else ((torch.rand(n, device=valid.device, generator=gen) - 0.5) * 400).to(torch.bfloat16))
+    else:
+        pen = valid if epi == EPI_U8MAX else torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16)
+    return pen[:, None] if orient == "col" else pen[None, :]
 
 
 def make_variant(name, n, q):
@@ -216,8 +255,6 @@ def main(argv=None):
     db = hs.build_unpacked_db(packed, NBITS)
     q_i8 = masked_queries(q_packed, min_lanes, NBITS).to(torch.int8)
     qs = q_scale[:, None].contiguous()
-    pen16 = torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16)[None, :]
-    pens = {"row": pen16, "col": pen16.reshape(n, 1), "u8max": valid[None, :]}
 
     base = None
     results = {}
@@ -232,8 +269,8 @@ def main(argv=None):
                 print(f"{name}: {results[name]:.4f} ms (the launch of {timed[key]})", flush=True)
                 continue
             timed[key] = name
-            variant, orient = make_variant(name, n, nq)
-            fn = functools.partial(variant, q_i8, qs, db, pens["u8max" if name == "u8max" else orient])
+            variant, _ = make_variant(name, n, nq)
+            fn = functools.partial(variant, q_i8, qs, db, variant_penalties(name, valid))
         ms = ex.time_ms(fn, dev, args.reps)
         out = fn()
         if name == "base":

@@ -86,11 +86,6 @@ def main(argv=None):
     q = db[torch.randint(0, n, (nq,), device=dev, generator=gen)].contiguous()
     qs = torch.full((nq,), 1 / 256, dtype=torch.float32, device=dev)
     valid = (torch.rand(n, device=dev, generator=gen) > 0.05).to(torch.uint8)
-    if args.general:
-        pen16 = ((torch.rand(n, device=dev, generator=gen) - 0.5) * 400).to(torch.bfloat16)
-        pen8 = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=gen)
-    else:
-        pen16, pen8 = torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16), valid
     blocks_per_sm = -(-(n // hs.BLOCK) // props.multi_processor_count)
     res = {}
     for variant, path in libs.items():
@@ -98,8 +93,8 @@ def main(argv=None):
         fn.argtypes, fn.restype = hs._SIGNATURES["iscc_blockmax_variant"], ctypes.c_int
         res[variant] = {}
         for name in args.names.split(","):
-            epi, chunk, nodma, orient = ek.variant_spec(name)
-            pen = pen8 if epi == ek.EPI_U8MAX else pen16
+            epi, chunk, nodma, _ = ek.variant_spec(name)
+            pen = ek.variant_penalties(name, valid, args.general)
             out = torch.empty((nq, n // hs.BLOCK), dtype=torch.float32, device=dev)
 
             def call():

@@ -23,7 +23,9 @@ from the ``.cu`` source carry its names.
   penalty in {0, 1}. Any other block keeps its rows and takes the
   per-element path (:func:`general`, :func:`finish_general`): the maximum
   of the f32 sums ``dot + p``, rounded to bf16 once. ``tree2d`` always takes
-  it. The int8 kernel's rows land by TMA, one 128-byte x 128-row box per
+  it. Its maxima are ``fmaxf``'s, which drop a NaN penalty that the plain
+  version's ``amax`` keeps (NaN is outside the wrapper's contract).
+  :func:`path_blocks` counts the blocks on each path as the kernel does. The int8 kernel's rows land by TMA, one 128-byte x 128-row box per
   swizzle atom (:func:`s8_offset`), and the dominated rows are then
   overwritten in the tile; the bf16 kernel reads rows into registers and
   substitutes as it reads.
@@ -74,6 +76,7 @@ BF16_EPIS = (ek.EPI_BF16DOT, ek.EPI_DOTONLY_BF16)
 PEN_EPIS = (ek.EPI_BF16, ek.EPI_TRANS, ek.EPI_U8MAX, ek.EPI_BF16DOT, ek.EPI_TREE2D)
 SUB_TILE_EPIS = (ek.EPI_CONSUME, ek.EPI_TREE2D)
 GATHER_EPIS = (ek.EPI_BF16, ek.EPI_BF16_NOPEN, ek.EPI_U8MAX, ek.EPI_BF16DOT)
+FINISH_MAX_EPIS = GATHER_EPIS + (ek.EPI_TRANS,)  # finishes_max: counted in g_path_blocks
 
 
 def teams(epi):
@@ -289,7 +292,27 @@ def fast_share(epi, pen):
     return float(plans(epi, pen_values(epi, pen).reshape(-1, BLOCK_ROWS))[0].mean())
 
 
-def run(epi, q, qs, db, pen, db_wrap=0, sms=SMS):
+def path_blocks(epi, pen, nq):
+    # type: (int, np.ndarray, int) -> tuple[int, int]
+    """(blocks whose maxima the kernel finishes, those of them on the fast
+    path) of one call with ``nq`` queries, as its ``g_path_blocks`` counts
+    them: every block once per query chunk; (0, 0) for the epilogues
+    without block maxima."""
+    if epi not in FINISH_MAX_EPIS:
+        return 0, 0
+    fast = plans(epi, pen_values(epi, pen).reshape(-1, BLOCK_ROWS))[0]
+    chunks = -(-nq // CHUNK_QUERIES)
+    return len(fast) * chunks, int(fast.sum()) * chunks
+
+
+def _fmax_rows(v):
+    # type: (np.ndarray) -> np.ndarray
+    """The kernel's per-element maximum over axis 1: ``fmaxf`` from -inf,
+    so a NaN is dropped (all NaN gives -inf)."""
+    return np.fmax(np.fmax.reduce(v, axis=1), np.float32(-np.inf))
+
+
+def run(epi, q, qs, db, pen, db_wrap=0, sms=SMS, counts=None):
     # type: (int, np.ndarray, np.ndarray, np.ndarray, np.ndarray, int, int) -> np.ndarray
     """
     The kernel's output, computed along its flow: launches per query chunk,
@@ -302,6 +325,8 @@ def run(epi, q, qs, db, pen, db_wrap=0, sms=SMS):
     :param pen: (N,) bf16 bits as uint16 / int16, or uint8 (``u8max``)
     :param db_wrap: 0, or rows read again and again (row r reads r % db_wrap)
     :param sms: the card's SMs (the grid's size)
+    :param counts: a list [finished, fast] the flow adds its blocks to, as
+        the kernel adds them to ``g_path_blocks``
     :return: (Q, N / 128) float32, (N / 128, Q) for ``trans``; NaN where
         nothing was written
     """
@@ -339,7 +364,7 @@ def run(epi, q, qs, db, pen, db_wrap=0, sms=SMS):
                         sums[:] = 0
                 elif epi == ek.EPI_TREE2D:
                     v = general(epi, tile, p[None, :])
-                    cls = np.maximum(cls, v.reshape(len(qi), BLOCK_ROWS // CLASSES, CLASSES).max(axis=1))
+                    cls = np.fmax(cls, _fmax_rows(v.reshape(len(qi), BLOCK_ROWS // CLASSES, CLASSES)))
                     if r == SUB_BLOCKS - 1:
                         out[qi, cols] = finalize(epi, round_bf16(cls), s[:, None])
                         cls[:] = -np.inf
@@ -347,7 +372,10 @@ def run(epi, q, qs, db, pen, db_wrap=0, sms=SMS):
                     if fast:
                         e = element(epi, tile.max(axis=1), pmax)
                     else:
-                        e = finish_general(epi, general(epi, tile, p[None, :]).max(axis=1))
+                        e = finish_general(epi, _fmax_rows(general(epi, tile, p[None, :])))
+                    if counts is not None:
+                        counts[0] += 1
+                        counts[1] += int(fast)
                     score = finalize(epi, e, s)
                     if trans:
                         out[block, qi] = score

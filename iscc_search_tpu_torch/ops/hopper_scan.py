@@ -96,6 +96,8 @@ _SIGNATURES = {
     # The phase-1 experiments (iscc_search_tpu_torch/experiments):
     # epi, q, q_scale, nq, db, pen, nrows, db_wrap, out, stream
     "iscc_blockmax_variant": (_I, _P, _P, _I, _P, _P, _I, _I, _P, _P),
+    # counts (2 x uint64, host), stream
+    "iscc_blockmax_variant_paths": (_P, _P),
     # q, nq, db, nrows, out, stream / q, nq, db, nrows, chunk, out, stream
     "iscc_int4_dot": (_P, _I, _P, _I, _P, _P),
     "iscc_int4_probe": (_P, _I, _P, _I, _I, _P, _P),

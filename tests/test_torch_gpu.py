@@ -475,20 +475,6 @@ def _experiment_case(dev, n, seed, nq=77):
     return packed, valid, q_packed, min_lanes, q_scale
 
 
-def _variant_pen(dev, name, orient, n, valid, general):
-    """The penalty row of a kernel-8 variant: 0 / -65536 (uint8 validity for
-    ``u8max``), or random values that take the per-element path (bf16 within
-    512 of each other; any uint8)."""
-    gen = torch.Generator(device=dev).manual_seed(n)
-    if name == "u8max":
-        pen = torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=gen) if general else valid
-    elif general:
-        pen = ((torch.rand(n, device=dev, generator=gen) - 0.5) * 400).to(torch.bfloat16)
-    else:
-        pen = torch.where(valid.bool(), 0.0, -65536.0).to(torch.bfloat16)
-    return pen[:, None] if orient == "col" else pen[None, :]
-
-
 # (rows, queries, penalty on the per-element path): two chunks at Q=77; the
 # per-element path; Q=513, three launches of 256, 256 and 1 queries; 2,816
 # blocks (88 sub-tiles), which do not divide among 132 SMs x 2 teams.
@@ -506,8 +492,8 @@ def test_variant_kernel_equals_plain(dev, name, case):
     packed, valid, q_packed, min_lanes, q_scale = _experiment_case(dev, n, seed=8, nq=nq)
     db = hs.build_unpacked_db(packed, 256)
     q = masked_queries(q_packed, min_lanes, 256).to(torch.int8)
-    fn, orient = exp_kernels.make_variant(name, n, q.shape[0])
-    pen = _variant_pen(dev, name, orient, n, valid, general)
+    fn, _ = exp_kernels.make_variant(name, n, q.shape[0])
+    pen = exp_kernels.variant_penalties(name, valid, general)
     before = exp_kernels.blockmax_variant.launches
     got = fn(q, q_scale[:, None].contiguous(), db, pen)
     torch.cuda.synchronize()

@@ -1,5 +1,5 @@
 """CPU tests of ``csrc/blockmax_variants.cu``, TPU kernel 8's epilogue
-probes on ``wgmma``: its flow mirrored in numpy (``ops/variant_layout.py``)
+probes on ``wgmma``: its flow mirrored in numpy (``experiments/variant_layout.py``)
 against the plain version ``exp_kernels.blockmax_variant_plain``, for every
 epilogue code, on penalties that take the fast path (the dominant-penalty
 row substitution) and the per-element path; its shares, gathers and
@@ -20,7 +20,7 @@ import torch
 from iscc_search_tpu_torch.experiments import exp_kernels as ek
 from iscc_search_tpu_torch.experiments import exp_variant_ablate
 from iscc_search_tpu_torch.ops import _build
-from iscc_search_tpu_torch.ops import variant_layout as vl
+from iscc_search_tpu_torch.experiments import variant_layout as vl
 from iscc_search_tpu_torch.ops import wgmma_layout as wl
 
 SOURCE = Path(vl.__file__).resolve().parent.parent / "csrc" / "blockmax_variants.cu"
@@ -66,6 +66,8 @@ def test_the_mirror_carries_the_kernels_constants():
     for fn, members in groups.items():
         body = re.search(rf"constexpr bool {fn}\(int epi\) \{{\s*return ([^;]+);", src).group(1)
         assert sorted(codes[n] for n in re.findall(r"epi == (k\w+)", body)) == sorted(members), fn
+    assert "constexpr bool finishes_max(int epi) { return gathers(epi) || epi == kTrans; }" in src
+    assert sorted(vl.FINISH_MAX_EPIS) == sorted(vl.GATHER_EPIS + (ek.EPI_TRANS,))
     # The shared-memory formulas the mirror reckons the budget with.
     flat = " ".join(src.split())
     assert ("2 * 2 * kS8TileBytes + kS8Chunks * qc * 16 + qc * 4 + 2 * 2 * kBlockRows * 4 + 2 * qc * kOutStride * 4 "
@@ -308,6 +310,55 @@ def test_the_flow_equals_plain(name, kind):
     cut mid-sub-tile for the block epilogues, on whole sub-tiles for the
     others."""
     _check(name, kind, nq=77, sms=5)
+
+
+@pytest.mark.parametrize("name, kind", [("bf16", "tombstones"), ("bf16", "near"), ("bf16_nopen", "tombstones"),
+                                        ("trans", "split_near"), ("u8max", "u8_01"), ("u8max", "u8_any"),
+                                        ("bf16dot", "gap"), ("tree2d", "split"), ("consume", "tombstones")])
+def test_the_flow_counts_its_paths_as_the_plan_predicts(name, kind):
+    """The blocks the flow finishes on each path, counted where it branches
+    (as the kernel counts them in ``g_path_blocks``), equal
+    ``path_blocks``: every block once per query chunk (Q = 300: two), the
+    fast ones by the plan's rule; none for the epilogues without block
+    maxima. ``chip_smoke.py`` holds the kernel's own counts to the same."""
+    epi, _, _, _ = ek.variant_spec(name)
+    q, qs, db, pen = _inputs(16384, 300, 4, kind)
+    counts = [0, 0]
+    vl.run(epi, q, qs, db, pen, sms=5, counts=counts)
+    assert tuple(counts) == vl.path_blocks(epi, pen, 300)
+    if epi in vl.FINISH_MAX_EPIS:
+        assert counts[0] == 2 * 128 and counts[1] == 2 * 128 * vl.fast_share(epi, pen)
+    else:
+        assert counts == [0, 0]
+
+
+@pytest.mark.parametrize("name", ("bf16", "trans", "bf16dot", "tree2d"))
+def test_a_nan_penalty_is_dropped_where_plain_keeps_it(name):
+    """Outside the wrapper's contract, pinned: the kernel's maxima are
+    ``fmaxf``'s, so a NaN penalty drops its row (a block or class of NaN
+    only gives -inf), as if it were -inf; the plain version's ``amax``
+    gives NaN there. The mirror holds the kernel's side."""
+    epi, _, _, orient = ek.variant_spec(name)
+    q, qs, db, pen = _inputs(16384, 77, 5, "tombstones")
+    p = torch.from_numpy(pen).view(torch.bfloat16).float()
+    p[5 * 128 + 17] = float("nan")  # one row of block 5
+    p[9 * 128 : 10 * 128] = float("nan")  # all of block 9
+    nan_bits = p.to(torch.bfloat16).view(torch.int16).numpy()
+    inf_bits = torch.where(p.isnan(), float("-inf"), p).to(torch.bfloat16).view(torch.int16).numpy()
+    got = vl.run(epi, q, qs, db, nan_bits, sms=5)
+
+    def plain(bits):
+        shape = (16384, 1) if orient == "col" else (1, 16384)
+        out = ek.blockmax_variant_plain(name, torch.from_numpy(q), torch.from_numpy(qs[:, None].copy()),
+                                        torch.from_numpy(db), torch.from_numpy(bits.reshape(shape)).view(torch.bfloat16))
+        return out.numpy().T if orient == "col" else out.numpy()
+
+    assert np.array_equal(got.T if orient == "col" else got, plain(inf_bits))
+    nan_cols = np.isnan(plain(nan_bits)).any(axis=0)
+    if epi == ek.EPI_TREE2D:  # classes span a sub-tile's blocks: every class of sub-tile 0
+        assert np.array_equal(np.flatnonzero(nan_cols), np.arange(vl.CLASSES))
+    else:
+        assert np.array_equal(np.flatnonzero(nan_cols), [5, 9])
 
 
 @pytest.mark.parametrize("name, kind", [("bf16", "tombstones"), ("bf16", "near"), ("trans", "split"),
