@@ -82,15 +82,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 8. experiments (run last) — the phase-1 experiment entry points of
    ``iscc_search_tpu_torch.experiments`` (TPU kernels 8-11): each kernel
    against its plain version (``torch.equal``) on edge cases (Q=77,
-   192-bit prefixes, tombstones, a dead block; kernel 8 also on penalties
-   that take its per-element path; kernels 10 and 11 also against
-   ``blockmax`` on the same packed rows), then each module's ``main()`` at
-   the script's own size with the counters set to 0 just before and read
-   just after, then each kernel against its plain version at that size,
-   with the plain version's time. Each kernel-8 launch is logged with its
-   bound and share, beside ``base`` and, for the bf16-unit probes, the
-   floor computed at the bf16 peak; the blocks that took its fast path are
-   counted by the kernel and must equal the plan's rule.
+   192-bit prefixes, tombstones, a dead block; kernels 8 and 10 also on
+   penalties that take their per-element path; kernels 10 and 11 also
+   against ``blockmax`` on the same packed rows), then each module's
+   ``main()`` at the script's own size with the counters set to 0 just
+   before and read just after, then each kernel against its plain version
+   at that size, with the plain version's time. Each kernel-8 launch is
+   logged with its bound and share, beside ``base`` and, for the bf16-unit
+   probes, the floor computed at the bf16 peak; the blocks that took
+   kernel 8's and kernel 10's fast path are counted by the kernel and must
+   equal the plan's rule.
 
 9. simprint — BASELINE config 4 at the engine level: 1,000,000 assets x
    100 random 128-bit chunk simprints (100,000,000 rows, keys shaped as
@@ -191,7 +192,7 @@ from iscc_search_tpu_torch.experiments import time_ms
 from iscc_search_tpu_torch.experiments import exp_bitplane_u8 as ex11
 from iscc_search_tpu_torch.experiments import exp_int4 as ex9
 from iscc_search_tpu_torch.experiments import exp_kernels as ex8
-from iscc_search_tpu_torch.experiments import variant_layout
+from iscc_search_tpu_torch.experiments import bitplane_layout, variant_layout
 from iscc_search_tpu_torch.indexes.tpu import TpuIndex
 from iscc_search_tpu_torch.models import IsccID, IsccUnit
 from iscc_search_tpu_torch.ops import _build, bitplane
@@ -1948,13 +1949,28 @@ def _count_paths(name, label, kind, pen, nq, fast):
                                             "share": counted[1] / counted[0]}
 
 
+def _count_bitplane_paths(case, pen, nq, fast):
+    """Kernel 10's path counts of the launch just made, as the kernel counted
+    them (``exp_bitplane_int8.bitplane_path_blocks``), against the rule of
+    ``experiments/bitplane_layout.py`` on the same penalties; recorded in
+    ``fast`` under ``blockmax_bitplane, <case>``."""
+    counted = ex10.bitplane_path_blocks(pen.device)
+    planned = bitplane_layout.path_blocks(pen.reshape(-1).view(torch.int16).cpu().numpy(), nq)
+    if counted != planned:
+        raise AssertionError(f"blockmax_bitplane {case}: the kernel counted (finished, fast) blocks {counted}, "
+                             f"the plan {planned}")
+    fast[f"blockmax_bitplane, {case}"] = {"blocks": counted[0], "fast_blocks": counted[1],
+                                          "share": counted[1] / counted[0]}
+
+
 def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10)):
     """The kernels ``which`` of 8-11 (10 stands for 10 and 11) against
     their plain versions on one data set (kernels 10 and 11 also against
     ``blockmax`` on the packed rows); ``timed``: also the plain versions'
-    times (the kernels' come from the entry points). ``fast`` gets kernel
-    8's counted path shares per launch and penalty kind (``_count_paths``).
-    Returns {kernel or variant: plain ms}."""
+    times (the kernels' come from the entry points). ``fast`` gets kernels
+    8's and 10's counted path shares per launch and penalty kind
+    (``_count_paths``, ``_count_bitplane_paths``). Returns {kernel or
+    variant: plain ms}."""
     packed, valid, q_packed, min_lanes, q_scale, q = _experiment_data(dev, n, nq, seed)
     qs = q_scale[:, None].contiguous()
     plain = {}
@@ -2006,12 +2022,20 @@ def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10
     if 10 in which:
         popc = hs.blockmax(q_packed, min_lanes, q_scale, packed, valid)
         bt = bitplane.bit_transpose_packed(packed)
-        pen = bitplane.bitplane_penalty_perm(torch.where(valid.bool(), 0.0, -65536.0)).to(torch.bfloat16)[None, :]
-        got = ex10.blockmax_bitplane(q, q_scale, bt, pen)
-        _compare(f"blockmax_bitplane {label}", got, ex10.blockmax_bitplane_plain(q, q_scale, bt, pen), err)
-        _compare(f"blockmax_bitplane {label} vs blockmax (blocks with a valid row)", got[:, live], popc[:, live], err)
-        if timed:
-            plain["blockmax_bitplane"] = time_ms(functools.partial(ex10.blockmax_bitplane_plain, q, q_scale, bt, pen), dev, 1)
+        # 0 / -65536 penalties (the fast path) and, in the edge case, random ones (the per-element path).
+        for general in (False, True) if label == "edge" else (False,):
+            kind = "per-element penalties" if general else "tombstone penalties"
+            pen = ex10.bitplane_penalties(valid, general)
+            ex10.bitplane_path_blocks(dev)  # cleared
+            got = ex10.blockmax_bitplane(q, q_scale, bt, pen)
+            _count_bitplane_paths(f"{label}, {kind}", pen, q.shape[0], fast)
+            _compare(f"blockmax_bitplane {label}, {kind}", got, ex10.blockmax_bitplane_plain(q, q_scale, bt, pen), err)
+            if not general:
+                _compare(f"blockmax_bitplane {label} vs blockmax (blocks with a valid row)", got[:, live], popc[:, live],
+                         err)
+            if timed and not general:
+                plain["blockmax_bitplane"] = time_ms(functools.partial(ex10.blockmax_bitplane_plain, q, q_scale, bt, pen),
+                                                     dev, 1)
         del bt
         for wb in (8, 16):
             twin = bitplane.build_twin(packed, wb)
@@ -2034,8 +2058,9 @@ def phase_experiments(dev):
     _experiment_cases(dev, 32768, 77, seed=6, err=err, fast=fast, label="edge", timed=False)
     log(f"[experiments] edge cases (N=32768, Q=77, 192-bit prefixes, tombstones, a dead block): kernel == plain "
         f"for all {len(ex8.NAMES)} variants of kernel 8 (0/-65536 penalties and per-element ones), int4_dot and "
-        f"int4_probe (Q=8 and 77), blockmax_bitplane and blockmax_subword u8/u16; kernel 10 == blockmax on blocks "
-        f"with a valid row, kernel 11 == blockmax everywhere ({time.perf_counter() - t0:.1f} s)")
+        f"int4_probe (Q=8 and 77), blockmax_bitplane (0/-65536 penalties and per-element ones) and blockmax_subword "
+        f"u8/u16; kernel 10 == blockmax on blocks with a valid row, kernel 11 == blockmax everywhere "
+        f"({time.perf_counter() - t0:.1f} s)")
 
     # The entry points at the scripts' sizes, counters at 0 just before.
     for fn in WRAPPERS.values():
@@ -2102,10 +2127,13 @@ def phase_experiments(dev):
             f"(plain {plain8[name]:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / res8[name]:.1f}% "
             f"of it{floor})")
     stats["blockmax_variant"]["base_ms"] = res8["base"]
-    stats["blockmax_variant"]["fast_path"] = fast
-    log("[experiments] blockmax_variant, blocks on the fast path (one element per query and block) of the blocks "
-        "the kernel finished, as it counted them (each equal to the plan's rule): "
-        + "; ".join(f"{k} {v['fast_blocks']} of {v['blocks']} ({v['share']:.4f})" for k, v in fast.items()))
+    for name in ("blockmax_variant", "blockmax_bitplane"):
+        ten = name == "blockmax_bitplane"
+        mine = {k: v for k, v in fast.items() if k.startswith("blockmax_bitplane, ") == ten}
+        stats[name]["fast_path"] = mine
+        log(f"[experiments] {name}, blocks on the fast path (one element per query and block) of the blocks "
+            "the kernel finished, as it counted them (each equal to the plan's rule): "
+            + "; ".join(f"{k} {v['fast_blocks']} of {v['blocks']} ({v['share']:.4f})" for k, v in mine.items()))
     for name in ("int4_dot", "int4_probe"):
         stats[name][f"at_n{N9_LARGE}"] = {"ms": res9_large[name], "plain_ms": plain9_large[name]}
     log(f"[experiments] int4_dot, N={N9} / N={N9_LARGE}: {res9['int4_dot']:.4f} / {res9_large['int4_dot']:.4f} ms; "

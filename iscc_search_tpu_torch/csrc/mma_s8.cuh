@@ -1,4 +1,4 @@
-// The int8 tensor-core tile of blockmax_bitplane.cu: one 128-row block
+// The int8 tensor-core tile of blockmax_bitplane.cu's sub-word kernel: one 128-row block
 // staged in shared memory as int8, each row padded by 16 bytes so that the B
 // fragment loads hit 32 distinct banks, dotted over its k-steps by
 // mma.sync.m16n8k32 (dot_tile, any row width); for 256-bit rows, A fragments
@@ -11,7 +11,6 @@
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace iscc_mma {
@@ -25,10 +24,6 @@ constexpr int kQueryTile = kWarps * kWarpQueries;
 constexpr int kNTiles = kBlockRows / 8;  // n of m16n8k32
 constexpr int kRowPad = 16;              // bytes after each staged row
 constexpr int kStride = kBits + kRowPad;  // bytes per staged 256-bit row
-
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
 
 // A fragments of queries qa and qa + 8 (zero past nq) for every k-step.
 __device__ __forceinline__ void load_a(const int8_t* __restrict__ q, int qa, int nq, int t,

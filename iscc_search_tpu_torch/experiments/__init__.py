@@ -11,7 +11,8 @@ of phase 1 on the card and checks them against a reference.
   the int8 tensor cores, nibbles shifted into bytes (``csrc/int4_dot.cu``);
 - :mod:`.exp_bitplane_int8` (``benchmarks/exp_bitplane_int8.py``): 0/1 bit
   planes of the bit-transposed twin on the int8 tensor cores
-  (``csrc/blockmax_bitplane.cu``);
+  (``csrc/blockmax_bitplane.cu``; :mod:`.bitplane_layout` mirrors its flow
+  in numpy, :mod:`.exp_bitplane_ablate` times it with parts left out);
 - :mod:`.exp_bitplane_u8` (``benchmarks/exp_bitplane_u8.py``): the same
   from the uint8 / uint16 sub-word twins (``csrc/blockmax_bitplane.cu``).
 

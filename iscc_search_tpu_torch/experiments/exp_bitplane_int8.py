@@ -12,8 +12,14 @@ matrix of 128 rows (one per view column), dotted with the ±1/0 queries;
 the max over each original block's 128 rows, then ``0.5 + f32(m) * qs``
 rounded once. The script's modes (``int8``, ``int8v2``, ``bf16cast``) and
 ``planes_per_dot`` change how the TPU extracts and groups the planes, not
-the function: they all map to the one kernel, which un-transposes one
-block's planes into shared memory as 0/1 int8 and runs ``mma.sync``.
+the function: they all map to the one kernel.
+
+The kernel (``csrc/blockmax_bitplane.cu``, mirrored in numpy by
+:mod:`.bitplane_layout`) runs ``wgmma`` with the queries resident per thread
+block, lands each slice of the twin once by TMA, un-transposes it into 0/1
+int8 row tiles by byte permutes in a producer warpgroup, and takes one
+element per query and block wherever the block's penalties allow
+(:func:`bitplane_path_blocks` reads how many blocks did).
 
 On every block with a valid row the result equals
 :func:`~iscc_search_tpu_torch.ops.hopper_scan.blockmax` on the packed rows.
@@ -24,6 +30,7 @@ Usage: ``python -m iscc_search_tpu_torch.experiments.exp_bitplane_int8
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import json
 
@@ -92,7 +99,9 @@ def blockmax_bitplane(q, q_scale, db, pen):
     """
     Block maxima from the bit-transposed twin (module docstring): the plain
     version for CPU tensors, the kernel for CUDA tensors
-    (``blockmax_bitplane.launches``).
+    (``blockmax_bitplane.launches``). For a NaN penalty the kernel's output
+    is undefined (its maxima are ``fmaxf``'s, which drop a NaN that the
+    plain version's ``amax`` keeps).
 
     :param q: (Q, 256) int8 ±1/0 prefix-masked queries
     :param q_scale: (Q,) float32
@@ -113,6 +122,35 @@ def blockmax_bitplane(q, q_scale, db, pen):
 
 
 blockmax_bitplane.launches = 0
+
+
+def bitplane_path_blocks(device):
+    # type: (torch.device) -> tuple[int, int]
+    """(blocks whose maxima the kernel finished, those of them on the fast
+    path) over the CUDA launches on ``device`` since the last call, as the
+    kernel counted them where it branches (a block counts once per query
+    chunk); the counts are then cleared."""
+    counts = (ctypes.c_ulonglong * 2)()
+    with torch.cuda.device(device):
+        err = hs._entry("iscc_blockmax_bitplane_paths")(ctypes.addressof(counts), torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"reading the blockmax_bitplane path counts failed: cudaError {err}")
+    return int(counts[0]), int(counts[1])
+
+
+def bitplane_penalties(valid, general=False):
+    # type: (torch.Tensor, bool) -> torch.Tensor
+    """The (1, N) bfloat16 penalty in ``bitplane_penalty_perm`` order from
+    (N,) validity: 0 / -65536 (every block takes the kernel's fast path), or
+    with ``general`` random values seeded by N, within 400 of each other,
+    that take its per-element path."""
+    n = valid.shape[0]
+    if general:
+        gen = torch.Generator(device=valid.device).manual_seed(n)
+        pen = (torch.rand(n, device=valid.device, generator=gen) - 0.5) * 400
+    else:
+        pen = torch.where(valid.bool(), 0.0, -65536.0)
+    return bitplane_penalty_perm(pen).to(torch.bfloat16)[None, :]
 
 
 def _variant(q_pm1, q_scale, db, pen):
@@ -144,7 +182,7 @@ def main(argv=None):
     min_lanes, q_scale = query_prefix(torch.full((nq,), NBITS // 32, dtype=torch.int32, device=dev), NBITS)
     q_pm1 = masked_queries(q_packed, min_lanes, NBITS)
     bt = bit_transpose_packed(packed)
-    pen = bitplane_penalty_perm(torch.where(valid.bool(), 0.0, -65536.0)).to(torch.bfloat16)[None, :]
+    pen = bitplane_penalties(valid)
 
     shipped = functools.partial(hs.blockmax, q_packed, min_lanes, q_scale, packed, valid)
     ref = shipped()

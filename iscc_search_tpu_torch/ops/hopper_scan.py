@@ -103,6 +103,7 @@ _SIGNATURES = {
     "iscc_int4_probe": (_P, _I, _P, _I, _I, _P, _P),
     # q, q_scale, nq, twin, pen, nrows, out, stream / ... width_bits, out, stream
     "iscc_blockmax_bitplane": (_P, _P, _I, _P, _P, _I, _P, _P),
+    "iscc_blockmax_bitplane_paths": (_P, _P),
     "iscc_blockmax_subword": (_P, _P, _I, _P, _P, _I, _I, _P, _P),
     # The bare wgmma tile of ops/wgmma_layout.py:
     # a_image, a_bytes, a_lbo, a_sbo, b_image, b_bytes, b_lbo, b_sbo, ksteps, out, stream

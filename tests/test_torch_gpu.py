@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from iscc_search_tpu_torch.engine import DeviceNphdIndex
-from iscc_search_tpu_torch.experiments import exp_bitplane_int8, exp_bitplane_u8, exp_int4, exp_kernels
+from iscc_search_tpu_torch.experiments import bitplane_layout, exp_bitplane_int8, exp_bitplane_u8, exp_int4, exp_kernels
 from iscc_search_tpu_torch.ops import bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
 from iscc_search_tpu_torch.ops import wgmma_layout as wl
@@ -582,6 +582,25 @@ def test_bitplane_kernels_equal_plain_and_blockmax(dev):
         assert exp_bitplane_u8.blockmax_subword.launches == before + 1
         assert torch.equal(got, exp_bitplane_u8.blockmax_subword_plain(q, q_scale, twin, pen, wb))
         assert torch.equal(got, popc)
+
+
+@pytest.mark.parametrize("general", (False, True))
+@pytest.mark.parametrize("n, nq", [(32768, 77), (8192, 300)])
+def test_bitplane_kernel_counts_its_paths_as_planned(dev, general, n, nq):
+    """Kernel 10 on 0/-65536 penalties (every block on the fast path) and on
+    per-element ones (none): == plain, and the blocks it counted on each
+    path (``bitplane_path_blocks``) equal the plan's rule
+    (``bitplane_layout.path_blocks``: every block once per query chunk)."""
+    packed, valid, q_packed, min_lanes, q_scale = _experiment_case(dev, n, seed=n + nq, nq=nq)
+    q = masked_queries(q_packed, min_lanes, 256).to(torch.int8)
+    twin = bitplane.bit_transpose_packed(packed)
+    pen = exp_bitplane_int8.bitplane_penalties(valid, general)
+    exp_bitplane_int8.bitplane_path_blocks(dev)  # cleared
+    got = exp_bitplane_int8.blockmax_bitplane(q, q_scale, twin, pen)
+    counted = exp_bitplane_int8.bitplane_path_blocks(dev)
+    assert torch.equal(got, exp_bitplane_int8.blockmax_bitplane_plain(q, q_scale, twin, pen))
+    planned = bitplane_layout.path_blocks(pen.view(torch.int16).cpu().numpy(), nq)
+    assert counted == planned and planned[1] == (0 if general else planned[0])
 
 
 # ------------------------------------------------ the asset-level entry point

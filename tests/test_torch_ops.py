@@ -634,6 +634,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "iscc_search_tpu_torch.experiments.exp_bitplane_int8",
         "iscc_search_tpu_torch.experiments.exp_bitplane_u8",
         "iscc_search_tpu_torch.experiments.exp_small_ablate",
+        "iscc_search_tpu_torch.experiments.exp_bitplane_ablate",
+        "iscc_search_tpu_torch.experiments.bitplane_layout",
         "iscc_search_tpu_torch.ops.small_layout",
     } <= set(names)
 
