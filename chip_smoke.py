@@ -82,16 +82,17 @@ Phases (each prints its lines; any failure raises and exits non-zero):
 8. experiments (run last) — the phase-1 experiment entry points of
    ``iscc_search_tpu_torch.experiments`` (TPU kernels 8-11): each kernel
    against its plain version (``torch.equal``) on edge cases (Q=77,
-   192-bit prefixes, tombstones, a dead block; kernels 8 and 10 also on
-   penalties that take their per-element path; kernels 10 and 11 also
+   192-bit prefixes, tombstones, a dead block; kernels 8, 10 and 11 also
+   on penalties that take their per-element path; kernels 10 and 11 also
    against ``blockmax`` on the same packed rows), then each module's
    ``main()`` at the script's own size with the counters set to 0 just
    before and read just after, then each kernel against its plain version
    at that size, with the plain version's time. Each kernel-8 launch is
    logged with its bound and share, beside ``base`` and, for the bf16-unit
-   probes, the floor computed at the bf16 peak; the blocks that took
-   kernel 8's and kernel 10's fast path are counted by the kernel and must
-   equal the plan's rule.
+   probes, the floor computed at the bf16 peak; kernel 11's u8 and u16
+   beside their bound, plain version and kernel 10's time; the blocks that
+   took kernel 8's, 10's and 11's fast path are counted by the kernel and
+   must equal the plan's rule.
 
 9. simprint — BASELINE config 4 at the engine level: 1,000,000 assets x
    100 random 128-bit chunk simprints (100,000,000 rows, keys shaped as
@@ -1949,18 +1950,20 @@ def _count_paths(name, label, kind, pen, nq, fast):
                                             "share": counted[1] / counted[0]}
 
 
-def _count_bitplane_paths(case, pen, nq, fast):
-    """Kernel 10's path counts of the launch just made, as the kernel counted
-    them (``exp_bitplane_int8.bitplane_path_blocks``), against the rule of
-    ``experiments/bitplane_layout.py`` on the same penalties; recorded in
-    ``fast`` under ``blockmax_bitplane, <case>``."""
+def _count_bitplane_paths(case, pen, nq, fast, width=32):
+    """The path counts of the launch of ``csrc/blockmax_bitplane.cu`` just
+    made (kernel 10 at ``width`` 32, kernel 11 at 16 and 8), as the kernel
+    counted them (``exp_bitplane_int8.bitplane_path_blocks``), against the
+    rule of ``experiments/bitplane_layout.py`` on the same penalties;
+    recorded in ``fast`` under ``blockmax_bitplane, <case>`` or
+    ``blockmax_subword, u<width> <case>``."""
     counted = ex10.bitplane_path_blocks(pen.device)
-    planned = bitplane_layout.path_blocks(pen.reshape(-1).view(torch.int16).cpu().numpy(), nq)
+    bits = pen.reshape(-1).view(torch.int16) if width == 32 else pen.reshape(-1)
+    planned = bitplane_layout.path_blocks(bits.cpu().numpy(), nq, width)
+    name = "blockmax_bitplane, " if width == 32 else f"blockmax_subword, u{width} "
     if counted != planned:
-        raise AssertionError(f"blockmax_bitplane {case}: the kernel counted (finished, fast) blocks {counted}, "
-                             f"the plan {planned}")
-    fast[f"blockmax_bitplane, {case}"] = {"blocks": counted[0], "fast_blocks": counted[1],
-                                          "share": counted[1] / counted[0]}
+        raise AssertionError(f"{name}{case}: the kernel counted (finished, fast) blocks {counted}, the plan {planned}")
+    fast[name + case] = {"blocks": counted[0], "fast_blocks": counted[1], "share": counted[1] / counted[0]}
 
 
 def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10)):
@@ -1968,9 +1971,9 @@ def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10
     their plain versions on one data set (kernels 10 and 11 also against
     ``blockmax`` on the packed rows); ``timed``: also the plain versions'
     times (the kernels' come from the entry points). ``fast`` gets kernels
-    8's and 10's counted path shares per launch and penalty kind
-    (``_count_paths``, ``_count_bitplane_paths``). Returns {kernel or
-    variant: plain ms}."""
+    8's, 10's and 11's counted path shares per launch and penalty kind
+    (``_count_paths``, ``_count_bitplane_paths``; kernel 11's too). Returns
+    {kernel or variant: plain ms}."""
     packed, valid, q_packed, min_lanes, q_scale, q = _experiment_data(dev, n, nq, seed)
     qs = q_scale[:, None].contiguous()
     plain = {}
@@ -2039,12 +2042,21 @@ def _experiment_cases(dev, n, nq, seed, err, fast, label, timed, which=(8, 9, 10
         del bt
         for wb in (8, 16):
             twin = bitplane.build_twin(packed, wb)
-            pen = ex11.subword_penalty(valid, wb)
-            got = ex11.blockmax_subword(q, q_scale, twin, pen, wb)
-            _compare(f"blockmax_subword u{wb} {label}", got, ex11.blockmax_subword_plain(q, q_scale, twin, pen, wb), err)
-            _compare(f"blockmax_subword u{wb} {label} vs blockmax", got, popc, err)
-            if timed:
-                plain[f"u{wb}"] = time_ms(functools.partial(ex11.blockmax_subword_plain, q, q_scale, twin, pen, wb), dev, 1)
+            # 0 / -32768 penalties and, in the edge case, random ones within
+            # 400 of each other beside -32768 on tombstones.
+            for general in (False, True) if label == "edge" else (False,):
+                kind = "per-element penalties" if general else "tombstone penalties"
+                pen = ex11.subword_penalty(valid, wb, general)
+                ex10.bitplane_path_blocks(dev)  # cleared
+                got = ex11.blockmax_subword(q, q_scale, twin, pen, wb)
+                _count_bitplane_paths(f"{label}, {kind}", pen, q.shape[0], fast, wb)
+                _compare(f"blockmax_subword u{wb} {label}, {kind}", got,
+                         ex11.blockmax_subword_plain(q, q_scale, twin, pen, wb), err)
+                if not general:
+                    _compare(f"blockmax_subword u{wb} {label} vs blockmax", got, popc, err)
+                if timed and not general:
+                    plain[f"u{wb}"] = time_ms(functools.partial(ex11.blockmax_subword_plain, q, q_scale, twin, pen, wb),
+                                              dev, 1)
             del twin
     return plain
 
@@ -2053,13 +2065,14 @@ def phase_experiments(dev):
     """TPU kernels 8-11 through the experiment entry points (module
     docstring, phase 6)."""
     err = dict.fromkeys(EXPERIMENT_KERNELS, 0.0)
-    fast = {}  # kernel-8 launch and data set -> blocks counted on each path
+    fast = {}  # kernel 8, 10 or 11 launch and data set -> blocks counted on each path
     t0 = time.perf_counter()
     _experiment_cases(dev, 32768, 77, seed=6, err=err, fast=fast, label="edge", timed=False)
     log(f"[experiments] edge cases (N=32768, Q=77, 192-bit prefixes, tombstones, a dead block): kernel == plain "
         f"for all {len(ex8.NAMES)} variants of kernel 8 (0/-65536 penalties and per-element ones), int4_dot and "
         f"int4_probe (Q=8 and 77), blockmax_bitplane (0/-65536 penalties and per-element ones) and blockmax_subword "
-        f"u8/u16; kernel 10 == blockmax on blocks with a valid row, kernel 11 == blockmax everywhere "
+        f"u8/u16 (0/-32768 penalties and per-element ones); kernel 10 == blockmax on blocks with a valid row, "
+        f"kernel 11 == blockmax everywhere (0/-32768 penalties) "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # The entry points at the scripts' sizes, counters at 0 just before.
@@ -2127,9 +2140,9 @@ def phase_experiments(dev):
             f"(plain {plain8[name]:.4f} ms, bound {bound_ms:.4f} ms by {bound_by}, {100 * bound_ms / res8[name]:.1f}% "
             f"of it{floor})")
     stats["blockmax_variant"]["base_ms"] = res8["base"]
-    for name in ("blockmax_variant", "blockmax_bitplane"):
-        ten = name == "blockmax_bitplane"
-        mine = {k: v for k, v in fast.items() if k.startswith("blockmax_bitplane, ") == ten}
+    for name in ("blockmax_variant", "blockmax_bitplane", "blockmax_subword"):
+        mine = {k: v for k, v in fast.items()
+                if k.startswith(name + ", ") or (name == "blockmax_variant" and not k.startswith("blockmax_"))}
         stats[name]["fast_path"] = mine
         log(f"[experiments] {name}, blocks on the fast path (one element per query and block) of the blocks "
             "the kernel finished, as it counted them (each equal to the plan's rule): "
@@ -2141,9 +2154,19 @@ def phase_experiments(dev):
     stats["int4_dot"][f"at_n{N9_LARGE}"]["library_ms"] = plain9_large["library"]
     stats["blockmax_bitplane"]["modes"] = sorted(k for k in res10 if k != "blockmax")  # one launch, timed once
     stats["blockmax_bitplane"]["blockmax_ms"] = res10["blockmax"]
-    stats["blockmax_subword"]["variants"] = {f"u{wb}": {"ms": res11[f"u{wb}"], "plain_ms": plain10[f"u{wb}"]}
-                                             for wb in (8, 16)}
+    stats["blockmax_subword"]["variants"] = {
+        f"u{wb}": {"ms": res11[f"u{wb}"], "plain_ms": plain10[f"u{wb}"], "entry_ms": res11[f"u{wb}_impl"],
+                   "bound_ms": bounds["blockmax_subword"][0], "share": bounds["blockmax_subword"][0] / res11[f"u{wb}"]}
+        for wb in (8, 16)}
     stats["blockmax_subword"]["blockmax_ms"] = res11["blockmax"]
+    stats["blockmax_subword"]["blockmax_bitplane_ms"] = res10["int8_p8"]
+    bound11 = bounds["blockmax_subword"][0]
+    for wb in (8, 16):
+        ms11 = res11[f"u{wb}"]
+        log(f"[experiments] blockmax_subword u{wb}: {ms11:.4f} ms, {100 * bound11 / ms11:.1f}% of its {bound11:.4f} ms "
+            f"bound ({res11[f'u{wb}_impl']:.4f} ms through the script's entry, which builds the penalty on every "
+            f"call); plain {plain10[f'u{wb}']:.4f} ms; kernel 10 (blockmax_bitplane) {res10['int8_p8']:.4f} ms "
+            "in the same run")
     for name, st in stats.items():
         log(f"[experiments] {name}: {st['ms']:.4f} ms (plain {st['plain_ms']:.4f} ms, bound {st['bound_ms']:.4f} ms "
             f"by {st['bound_by']}), max |kernel - plain| = {st['max_abs_err']}")

@@ -28,8 +28,9 @@
 //     fragment. No barrier per block.
 //   - The 32 bits of one packed word are one MMA k-step, in an order that
 //     makes an A register of lane (g, t) one AND: k = 4t + j is bit 2t + 8j
-//     and k = 16 + 4t + j is bit 2t + 1 + 8j (the m16n8k32 map of
-//     mma_s8.cuh), so the registers are word & (0x01010101 << 2t) and
+//     and k = 16 + 4t + j is bit 2t + 1 + 8j (PTX's m16n8k32 s8 A map:
+//     registers 0 / 1 hold k 4t .. 4t + 3, 2 / 3 k 16 + 4t ..), so the
+//     registers are word & (0x01010101 << 2t) and
 //     (word >> 1) & (0x01010101 << 2t): bytes 0 or 2^2t, three integer
 //     instructions per row word and lane. The queries' B bytes are ±2^(6-2t)
 //     (zero past min_lanes), so every product is 64 * x * q with x the 0/1
@@ -179,8 +180,10 @@ __device__ __forceinline__ uint32_t signed_bytes(uint32_t bits01, int e) {
   return __vsub4(bits01 << (e + 1), kByteBits << e);
 }
 
-// d (16 x 8 int32) = a (16 x 32 s8) x b (32 x 8 s8) + c, fragments of
-// mma_s8.cuh.
+// d (16 x 8 int32) = a (16 x 32 s8) x b (32 x 8 s8) + c, in PTX's
+// m16n8k32 s8 fragments (lane 4 g + t): A registers 0 / 1 hold k 4t .. 4t +
+// 3 of rows g / g + 8, 2 / 3 k 16 + 4t ..; B registers 0 / 1 the same k of
+// column g; C registers 0 / 1 row g, columns 2t and 2t + 1, 2 / 3 row g + 8.
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4], uint2 b, const int (&c)[4]) {
   asm("mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %11, %12, %13};\n"

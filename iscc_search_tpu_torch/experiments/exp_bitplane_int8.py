@@ -129,7 +129,8 @@ def bitplane_path_blocks(device):
     """(blocks whose maxima the kernel finished, those of them on the fast
     path) over the CUDA launches on ``device`` since the last call, as the
     kernel counted them where it branches (a block counts once per query
-    chunk); the counts are then cleared."""
+    chunk; the launches of ``exp_bitplane_u8.blockmax_subword`` count here
+    too, one kernel at another width); the counts are then cleared."""
     counts = (ctypes.c_ulonglong * 2)()
     with torch.cuda.device(device):
         err = hs._entry("iscc_blockmax_bitplane_paths")(ctypes.addressof(counts), torch.cuda.current_stream().cuda_stream)

@@ -13,6 +13,14 @@ order, the max over each original block's 128 rows, then
 so the result equals :func:`~iscc_search_tpu_torch.ops.hopper_scan.blockmax`
 on the packed rows on every block, all-invalid blocks included.
 
+The kernel is kernel 10's (``csrc/blockmax_bitplane.cu``, mirrored in numpy
+by :mod:`.bitplane_layout`) at element width 8 or 16 with the int32
+epilogue: ``wgmma`` with the queries resident per thread block, each slice
+of the twin landed once by TMA and un-transposed by byte permutes in a
+producer warpgroup, one element per query and block wherever the block's
+penalties allow (:func:`~.exp_bitplane_int8.bitplane_path_blocks`, one
+count for both entries, reads how many blocks did).
+
 Usage: ``python -m iscc_search_tpu_torch.experiments.exp_bitplane_u8
 [--n ROWS] [--q Q]``
 """
@@ -68,7 +76,9 @@ def blockmax_subword(q, q_scale, twin, pen, width_bits):
     """
     Block maxima from a sub-word twin (module docstring): the plain version
     for CPU tensors, the kernel for CUDA tensors
-    (``blockmax_subword.launches``).
+    (``blockmax_subword.launches``). The kernel is exact for penalties with
+    ``|pen| <= 2**29``, where ``2 * (dot01 + pen) - qsum`` fits in int32; it
+    takes a twin and a penalty that start on 16 bytes.
 
     :param q: (Q, 256) int8 ±1/0 prefix-masked queries
     :param q_scale: (Q,) float32
@@ -93,10 +103,19 @@ def blockmax_subword(q, q_scale, twin, pen, width_bits):
 blockmax_subword.launches = 0
 
 
-def subword_penalty(db_valid, width_bits):
-    # type: (torch.Tensor, int) -> torch.Tensor
-    """(1, N) int32 0 / -32768 penalty of a validity mask, in twin order."""
-    pen = torch.where(db_valid.to(torch.bool), 0, PENALTY).to(torch.int32)
+def subword_penalty(db_valid, width_bits, general=False):
+    # type: (torch.Tensor, int, bool) -> torch.Tensor
+    """(1, N) int32 penalty of a validity mask, in twin order: 0 / -32768
+    (every block takes the kernel's fast path), or with ``general`` random
+    values seeded by N, within 400 of each other, -32768 where invalid
+    (blocks with a valid row take its per-element path)."""
+    valid = db_valid.to(torch.bool)
+    pen = torch.where(valid, 0, PENALTY).to(torch.int32)
+    if general:
+        n = valid.shape[0]
+        gen = torch.Generator(device=valid.device).manual_seed(n)
+        values = torch.randint(-200, 200, (n,), dtype=torch.int32, device=valid.device, generator=gen)
+        pen = torch.where(valid, values, pen)
     return penalty_perm(pen, width_bits).reshape(1, -1)
 
 
@@ -129,13 +148,19 @@ def main(argv=None):
     ref = shipped()
     results = {"blockmax": ex.time_ms(shipped, dev, args.reps)}
     print(f"blockmax (popc, packed rows): {results['blockmax']:.4f} ms per sweep", flush=True)
+    q_i8 = q_pm1.to(torch.int8).contiguous()
     for wb in (8, 16):
         twin = build_twin(packed, wb)
-        fn = functools.partial(blockmax_subword_impl, q_pm1, q_scale, twin, valid, wb, chunk)
-        exact = bool(torch.equal(fn(), ref))
+        # The kernel on a penalty built once, and the script's entry, which
+        # builds the penalty from the validity on every call.
+        fn = functools.partial(blockmax_subword, q_i8, q_scale, twin, subword_penalty(valid, wb), wb)
+        impl = functools.partial(blockmax_subword_impl, q_pm1, q_scale, twin, valid, wb, chunk)
+        exact = bool(torch.equal(fn(), ref)) and bool(torch.equal(impl(), ref))
         results[f"u{wb}"] = ex.time_ms(fn, dev, args.reps)
-        print(f"u{wb}: {results[f'u{wb}']:.4f} ms per sweep, exact vs blockmax={exact}, "
-              f"{results['blockmax'] / results[f'u{wb}']:.2f}x", flush=True)
+        results[f"u{wb}_impl"] = ex.time_ms(impl, dev, args.reps)
+        print(f"u{wb}: {results[f'u{wb}']:.4f} ms per sweep ({results[f'u{wb}_impl']:.4f} ms with the penalty built "
+              f"from the validity), exact vs blockmax={exact}, {results['blockmax'] / results[f'u{wb}']:.2f}x",
+              flush=True)
         del twin
     print(json.dumps(results), flush=True)
     return results

@@ -584,23 +584,38 @@ def test_bitplane_kernels_equal_plain_and_blockmax(dev):
         assert torch.equal(got, popc)
 
 
+@pytest.mark.parametrize("width", bitplane_layout.WIDTHS)
 @pytest.mark.parametrize("general", (False, True))
 @pytest.mark.parametrize("n, nq", [(32768, 77), (8192, 300)])
-def test_bitplane_kernel_counts_its_paths_as_planned(dev, general, n, nq):
-    """Kernel 10 on 0/-65536 penalties (every block on the fast path) and on
-    per-element ones (none): == plain, and the blocks it counted on each
-    path (``bitplane_path_blocks``) equal the plan's rule
+def test_bitplane_kernel_counts_its_paths_as_planned(dev, general, n, nq, width):
+    """The kernel at each element width (32: kernel 10's bf16 epilogue; 16
+    and 8: kernel 11's int32 one) on tombstone penalties (every block on the
+    fast path) and on per-element ones (none but all-invalid blocks at 16
+    and 8): == plain, and the blocks it counted on each path
+    (``bitplane_path_blocks``) equal the plan's rule
     (``bitplane_layout.path_blocks``: every block once per query chunk)."""
     packed, valid, q_packed, min_lanes, q_scale = _experiment_case(dev, n, seed=n + nq, nq=nq)
     q = masked_queries(q_packed, min_lanes, 256).to(torch.int8)
-    twin = bitplane.bit_transpose_packed(packed)
-    pen = exp_bitplane_int8.bitplane_penalties(valid, general)
     exp_bitplane_int8.bitplane_path_blocks(dev)  # cleared
-    got = exp_bitplane_int8.blockmax_bitplane(q, q_scale, twin, pen)
+    if width == 32:
+        twin = bitplane.bit_transpose_packed(packed)
+        pen = exp_bitplane_int8.bitplane_penalties(valid, general)
+        got = exp_bitplane_int8.blockmax_bitplane(q, q_scale, twin, pen)
+        want = exp_bitplane_int8.blockmax_bitplane_plain(q, q_scale, twin, pen)
+        bits = pen.view(torch.int16)
+    else:
+        twin = bitplane.build_twin(packed, width)
+        pen = exp_bitplane_u8.subword_penalty(valid, width, general)
+        got = exp_bitplane_u8.blockmax_subword(q, q_scale, twin, pen, width)
+        want = exp_bitplane_u8.blockmax_subword_plain(q, q_scale, twin, pen, width)
+        bits = pen
     counted = exp_bitplane_int8.bitplane_path_blocks(dev)
-    assert torch.equal(got, exp_bitplane_int8.blockmax_bitplane_plain(q, q_scale, twin, pen))
-    planned = bitplane_layout.path_blocks(pen.view(torch.int16).cpu().numpy(), nq)
-    assert counted == planned and planned[1] == (0 if general else planned[0])
+    assert torch.equal(got, want)
+    planned = bitplane_layout.path_blocks(bits.cpu().numpy(), nq, width)
+    # Per-element int32 penalties keep -32768 on tombstones: an all-invalid
+    # block (block 3) still takes the fast path, once per query chunk.
+    dead = int((~valid.bool().reshape(-1, 128).any(dim=1)).sum()) * -(-nq // 256)
+    assert counted == planned and planned[1] == (planned[0] if not general else dead if width < 32 else 0)
 
 
 # ------------------------------------------------ the asset-level entry point

@@ -508,9 +508,12 @@ def test_build_key_follows_sources_and_nvcc_is_required(tmp_path, monkeypatch):
     shutil.copytree(_build.CSRC_DIR, csrc)
     monkeypatch.setattr(_build, "CSRC_DIR", csrc)
     assert _build.build_key() == key
-    (csrc / "mma_s8.cuh").write_text((csrc / "mma_s8.cuh").read_text() + "\n// changed\n")
+    (csrc / "extra.cuh").write_text("#pragma once\n")
     header_key = _build.build_key()
-    assert header_key != key  # a header change rebuilds too
+    assert header_key != key  # a header rebuilds too
+    (csrc / "extra.cuh").write_text("#pragma once\n// changed\n")
+    assert _build.build_key() not in (key, header_key)  # and so does a change to it
+    header_key = _build.build_key()
     (csrc / "blockmax.cu").write_text((csrc / "blockmax.cu").read_text() + "\n// changed\n")
     assert _build.build_key() not in (key, header_key)
     monkeypatch.setattr(_build, "BUILD_ROOT", tmp_path / "build")
