@@ -130,13 +130,31 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    (phase 2, candidates, ``gather_rescore``, score epilogue, ``torch.topk``,
    row gather) and under the profiler;
    ``flush``/``close``/reopen (identical answers); a 1,000-asset copy
-   opened with ``device="cpu"`` answering ``model_dump()``-identically.
+   opened with ``device="cpu"`` answering ``model_dump()``-identically;
+11. server — the REST front on that index, alone in its base directory:
+   ``get_index("tpu://...")`` on the card (its default device),
+   ``create_app`` on ``PooledHTTPServer`` over loopback sockets; the probes,
+   ``/indexes``, ``/openapi.json`` and ``/metrics``; every search kind
+   (units, simprints, both, ISCC-ID by POST, ISCC-CODE by GET) at limit 10
+   and 100, 7 requests each through ``RemoteIndex``, each body equal to the
+   direct ``search_assets(...).model_dump(mode="json", exclude_none=True)``
+   on the same manager (and once through ``RemoteIndex.search_assets`` and
+   ``urllib``), timed beside the direct call; ``GET .../assets/{id}``; 8
+   keep-alive clients x 8 ``both`` requests (query assets/s beside
+   [product]'s direct figure); 1,000 new assets added over HTTP in
+   ``RemoteIndex`` batches of 100 (assets/s, a batch split into encoding,
+   decoding and ``add_assets``), each then found by a units search; 422,
+   404, 409 and 401 (a second app with ``api_secret``); then ``serve()``
+   in a subprocess (``ISCC_SEARCH_INDEX_URI``, ``_PORT``, ``_HOST``): a
+   search equal to the direct call, 10 assets added, SIGTERM, exit 0, and
+   the reopened index holds them; ``memory://`` and ``kv://`` through
+   ``get_index``, 100 assets each over HTTP.
 
-Phases 9 and 10 run after phase 7 and set the launch counts to 0 just before
+Phases 9-11 run after phase 7 and set the launch counts to 0 just before
 they drive their path and read them just after (phase 10's kernel-against-
-plain launches are not counted); the JSON summary's ``launches`` of the path
-kernels is the sum over the three search paths, ``launches_by_path`` splits
-it, and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
+plain launches are not counted; phase 11 counts its HTTP requests alone);
+the JSON summary's ``launches`` of the path kernels is the sum over the four
+search paths, ``launches_by_path`` splits it, and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
 10's kernel-against-plain numbers, one entry per shape (for
 ``gather_rescore`` the routed form's, with both forms' times).
 ``gather_rescore`` also carries ``by_form``, every [gather] point, and
@@ -171,17 +189,25 @@ import contextlib
 import functools
 import itertools
 import json
+import os
 import shutil
+import signal
+import socket
 import statistics
 import subprocess
+import sys
 import tempfile
 import threading
 import time
+import urllib.error
+import urllib.parse
+import urllib.request
 from pathlib import Path
 
 import numpy as np
 import torch
 
+import iscc_search_tpu_torch
 from iscc_search_tpu_torch import codec as ic
 from iscc_search_tpu_torch import schema
 from iscc_search_tpu_torch.engine import DeviceNphdIndex
@@ -202,7 +228,12 @@ from iscc_search_tpu_torch.ops import wgmma_layout
 from iscc_search_tpu_torch.ops.nphd import hamming_scores, nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix, topk_blocks_hier
+from iscc_search_tpu_torch.options import SearchOptions, get_index
+from iscc_search_tpu_torch.remote import RemoteIndex
 from iscc_search_tpu_torch.server import metrics
+from iscc_search_tpu_torch.server.app import create_app
+from iscc_search_tpu_torch.server.openapi import build_openapi
+from iscc_search_tpu_torch.server.pooled import PooledHTTPServer
 
 N_ROWS = 10_485_760  # bench.py headline size
 LANE_CHOICES = (2, 4, 6, 8)  # 64/128/192/256-bit
@@ -291,6 +322,9 @@ PRODUCT_CPU_ASSETS = 1000  # the copy opened with device="cpu"
 PRODUCT_REPS = 7  # single requests per query shape
 PRODUCT_CLIENTS, PRODUCT_PER_CLIENT = 8, 8
 PRODUCT_T0 = 1_700_000_000_000_000  # ISCC-ID timestamps (microseconds) of the product assets
+PRODUCT_BASE, PRODUCT_NAME = "product_base", "product"  # the product index's base directory and name
+SERVER_NEW_ASSETS, SERVER_CHUNK = 1000, 100  # assets added over HTTP, in RemoteIndex batches of this size
+SERVER_KV_ASSETS = 100  # assets of the memory:// and kv:// round trips
 PATH_KERNELS = ("blockmax", "blockmax_mma_packed", "blockmax_small", "gather_rescore")  # what a search launches
 GATHER_REPS = 20  # CUDA-graph-captured calls per form and [gather] point
 # The [gather] ladder: synthetic random partitions at the product's capacity,
@@ -300,7 +334,7 @@ HBM_BYTES_S = 3.35e12  # H100 SXM data sheet
 INT8_OPS_S = 1979e12
 BF16_OPS_S = 989e12  # dense bf16 tensor-core peak: the floor of the kernel-8 variants that dot on the bf16 units
 POPC_PER_CLOCK_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
-CARD = {}  # filled by phase_device: SMs and maximum SM clock
+CARD = {}  # filled by phase_device: name and power limit, SMs and maximum SM clock
 PATH_FORMS = {}  # path label -> gather_rescore calls by form, read beside its launches
 
 
@@ -419,6 +453,7 @@ def phase_device():
     log(f"[device] {torch.cuda.get_device_name(0)} capability={cap} count={torch.cuda.device_count()} "
         f"torch={torch.__version__} cuda={torch.version.cuda}")
     log(smi)  # name, power limit
+    CARD["smi"] = smi
     CARD["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
     CARD["max_sm_mhz"] = float(subprocess.run(
         ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
@@ -1645,7 +1680,7 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
     (limit 10 and 100, scan and exact, an ISCC-ID query) against brute
     force, concurrent clients through the batcher, ``flush``/``close``/
     reopen, and a small copy opened on the CPU answering the same."""
-    path = Path(tmp) / "product"
+    path = Path(tmp) / PRODUCT_BASE / PRODUCT_NAME  # alone in its base directory: [server] serves it
     log(f"[product] TpuIndex (device={dev}): {n_assets} assets x (META, SEMANTIC, CONTENT, DATA units of 64-256 bits, "
         f"INSTANCE, {n_sp} x 128-bit simprints, metadata) = {n_assets * n_sp} chunk rows "
         f"(BASELINE config 4 cut to {100 * n_assets / C4_ASSETS:g}% of its assets: the store ingest is per-asset Python)")
@@ -1802,8 +1837,9 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
         raise AssertionError(f"[product] concurrent clients: errors {errors[:1]}, answers equal: {got == want}")
     sweeps = metrics.batch_queries._totals.get((), 0) - sweeps0
     fused = metrics.batch_queries._sums.get((), 0.0) - fused0
+    direct_rate = len(work) / wall
     log(f"[product] {clients} concurrent clients x {per_client} 'both' requests: {wall:.3f} s, "
-        f"{len(work) / wall:.1f} query assets/s; {sweeps} device sweeps for {fused:.0f} queries "
+        f"{direct_rate:.1f} query assets/s; {sweeps} device sweeps for {fused:.0f} queries "
         f"({fused / max(sweeps, 1):.1f} per sweep); answers equal the sequential ones")
 
     # The kernels at this path's own shapes, on its chunk partition: a limit-100
@@ -1865,7 +1901,403 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
     launches = check_path_launches("[product]", dev, read_launches(), scans)
     log(f"[product] {n_cpu}-asset copy opened with device='cpu': {compared} answers model_dump()-identical to the card's")
     log(f"[product] kernel launches of the path: {launches}")
-    return launches, stats
+    return launches, stats, truth, direct_rate
+
+
+# ---------------------------------------------------------- the REST server
+
+
+def product_query(i, t, kind):
+    """The wire query of product asset ``i`` (host truth ``t``) by ``kind``:
+    its units, its simprints, both, its ISCC-ID, or an ISCC-CODE of its META,
+    CONTENT, DATA and INSTANCE units (the GET route's query)."""
+    w = product_wire(i, t)
+    sp = {PRODUCT_SP: [v["simprint"] for v in w["simprints"][PRODUCT_SP]]}
+    if kind == "iscc_code":
+        return {"iscc_code": ic.gen_iscc_code_v0([w["units"][k] for k in (0, 2, 3, 4)])["iscc"]}
+    return {"units": {"units": w["units"]}, "simprints": {"simprints": sp},
+            "both": {"units": w["units"], "simprints": sp}, "iscc_id": {"iscc_id": w["iscc_id"]}}[kind]
+
+
+def http_json(base, method, route, payload=None, headers=None):
+    """(status, body, headers) of one request through ``urllib`` on a new
+    connection; a JSON body parsed, any other as text."""
+    data = None if payload is None else json.dumps(payload).encode()
+    req = urllib.request.Request(base + route, data=data, method=method,
+                                 headers={"Content-Type": "application/json", **(headers or {})})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as r:
+            status, body, hdrs = r.status, r.read(), r.headers
+    except urllib.error.HTTPError as e:
+        status, body, hdrs = e.code, e.read(), e.headers
+    if body and (hdrs.get("Content-Type") or "").startswith("application/json"):
+        return status, json.loads(body), hdrs
+    return status, body.decode(), hdrs
+
+
+class ServedApp:
+    """``create_app`` over ``index`` served by ``PooledHTTPServer`` on
+    127.0.0.1 at a free port, in a thread, with the options' transport
+    settings; ``close()`` stops it."""
+
+    def __init__(self, index, opts):
+        self.srv = PooledHTTPServer("127.0.0.1", 0, create_app(index=index, opts=opts), threads=opts.http_threads,
+                                    max_pending=opts.http_max_pending,
+                                    queue_deadline=opts.http_queue_deadline_ms / 1000.0)
+        self.base = f"http://127.0.0.1:{self.srv.server_port}"
+        self.thread = threading.Thread(target=self.srv.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.srv.server_close()
+        self.thread.join(10)
+
+
+def _free_port():
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dump(model):
+    """What the app's routes answer for ``model`` (server/app.py ``_dump``)."""
+    return model.model_dump(mode="json", exclude_unset=True, exclude_none=True)
+
+
+def _threads(fn, parts):
+    """Run ``fn(part)`` for each part on a thread of its own; raise the first
+    error. Returns the wall time in seconds."""
+    errors = []
+
+    def run(part):
+        try:
+            fn(part)
+        except Exception as exc:  # noqa: BLE001 - raised below, the phase fails
+            errors.append(exc)
+
+    threads = [threading.Thread(target=run, args=(part,)) for part in parts]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    if any(th.is_alive() for th in threads):
+        raise AssertionError("a client thread did not finish in 300 s")
+    return wall
+
+
+def roundtrip_assets(n, first):
+    """``n`` wire assets with META, CONTENT, DATA and INSTANCE units of 64
+    bits and their ISCC-CODE (the memory:// backend matches codes only)."""
+    rng = np.random.default_rng(first)
+    kinds = ((ic.MT.META, ic.ST.NONE), (ic.MT.CONTENT, ic.ST_CC.TEXT), (ic.MT.DATA, ic.ST.NONE),
+             (ic.MT.INSTANCE, ic.ST.NONE))
+    out = []
+    for j in range(n):
+        units = [_unit(m, st, rng.bytes(8)) for m, st in kinds]
+        out.append({"iscc_id": product_iscc_id(first + j), "iscc_code": ic.gen_iscc_code_v0(units)["iscc"],
+                    "units": units, "metadata": {"name": f"round trip {j}"}})
+    return out
+
+
+def phase_server(rng, dev, tmp, truth, direct_rate, n_new=SERVER_NEW_ASSETS, n_sp=PRODUCT_SIMPRINTS,
+                 n_kv=SERVER_KV_ASSETS, reps=PRODUCT_REPS, clients=PRODUCT_CLIENTS, per_client=PRODUCT_PER_CLIENT):
+    """The REST front on the card: the product index opened through the
+    backend factory (``get_index("tpu://...")``, the card by default), served
+    by ``create_app`` on ``PooledHTTPServer`` over real sockets; every search
+    kind at limit 10 and 100 through the port's ``RemoteIndex`` and ``urllib``,
+    each body equal to the direct ``search_assets`` call's on the same
+    manager; 8 keep-alive clients; 1,000 assets added over HTTP and each
+    found by a search; the error codes; ``serve()`` itself in a subprocess,
+    stopped by SIGTERM; the memory:// and kv:// backends. Returns the path's
+    kernel launches (the HTTP requests' alone). On the card the factory and
+    ``serve()`` take their default device; elsewhere they are given ``dev``."""
+    base_dir, name, n = Path(tmp) / PRODUCT_BASE, PRODUCT_NAME, len(truth)
+    t_phase = time.perf_counter()
+
+    def slog(msg):  # each line with the phase's elapsed seconds: where its time goes
+        log(f"{msg} [{time.perf_counter() - t_phase:.1f} s]")
+
+    on_card = {} if dev.type == "cuda" else {"device": dev}
+    card = CARD.get("smi", str(dev))  # every timing line names the card and its power limit
+    t0 = time.perf_counter()
+    manager = get_index(f"tpu://{base_dir}", **on_card)
+    listed = manager.list_indexes()
+    if manager.device.type != dev.type or [(i.name, i.assets) for i in listed] != [(name, n)]:
+        raise AssertionError(f"[server] get_index('tpu://...'): device {manager.device}, indexes {listed}")
+    opts = SearchOptions(index_uri=f"tpu://{base_dir}", host="127.0.0.1", port=0)
+    served = ServedApp(manager, opts)
+    slog(f"[server] get_index('tpu://.../{PRODUCT_BASE}') on {manager.device} ({[i.name for i in listed]}, {n} assets) "
+        f"+ create_app + PooledHTTPServer ({opts.http_threads} threads) on {served.base}: "
+        f"{time.perf_counter() - t0:.3f} s")
+    try:
+        # The probes and the index routes: each body what the direct call gives.
+        for route, want in (
+            ("/healthz", {"status": "ok"}), ("/readyz", {"status": "ready"}),
+            ("/status", {"version": iscc_search_tpu_torch.__version__, "mode": "standard"}),
+            ("/indexes", [_dump(i) for i in manager.list_indexes()]),
+            (f"/indexes/{name}", _dump(manager.get_index(name))), ("/openapi.json", build_openapi()),
+        ):
+            status, body, _ = http_json(served.base, "GET", route)
+            if (status, body) != (200, want):
+                raise AssertionError(f"[server] GET {route}: {status} {str(body)[:300]}")
+        status, body, hdrs = http_json(served.base, "GET", "/metrics")
+        if status != 200 or 'iscc_http_requests_total{method="GET",route="/healthz",status="200"} 1' not in body:
+            raise AssertionError(f"[server] GET /metrics: {status} {body[:300]}")
+        slog("[server] GET /healthz, /readyz, /status, /indexes, /indexes/{name}, /openapi.json, /metrics: 200, "
+            "each body what the direct call gives")
+
+        # The direct answers and times, before the path's counted run.
+        picks = list(range(0, 10 * reps, 10))
+        kinds = ("units", "simprints", "both", "iscc_id", "iscc_code")
+        cases = [(kind, limit) for kind in kinds for limit in (10, 100)]
+
+        def direct(q, limit):
+            return manager.search_assets(name, schema.IsccQuery(**q), limit).model_dump(mode="json", exclude_none=True)
+
+        for kind, limit in cases:  # warm: the reopened index builds and uploads its partitions
+            direct(product_query(picks[0], truth[picks[0]], kind), limit)
+        want, direct_ms = {}, {}
+        for kind, limit in cases:
+            times = []
+            for i in picks:
+                q = product_query(i, truth[i], kind)
+                t0 = time.perf_counter()
+                want[kind, limit, i] = direct(q, limit)
+                times.append(time.perf_counter() - t0)
+            direct_ms[kind, limit] = statistics.median(times) * 1e3
+        work = list(range(10 * reps, 10 * (reps + clients * per_client), 10))
+        want_both = {i: direct(product_query(i, truth[i], "both"), 10) for i in work}
+
+        # The path: HTTP requests alone, the counts set to 0 just before.
+        reset_launches()
+        scans, stop = spy_routes()
+        remote = RemoteIndex(served.base, name, chunk_size=SERVER_CHUNK)
+        http_ms = {}
+        for kind, limit in cases:
+            times = []
+            for i in picks:
+                q = product_query(i, truth[i], kind)
+                t0 = time.perf_counter()
+                if kind == "iscc_code":
+                    r = remote.request("GET", f"/indexes/{name}/search", params={**q, "limit": limit})
+                else:
+                    r = remote.request("POST", f"/indexes/{name}/search", payload=q, params={"limit": limit})
+                times.append(time.perf_counter() - t0)
+                if r.status_code != 200 or r.json() != want[kind, limit, i]:
+                    raise AssertionError(f"[server] {kind} asset {i} limit {limit}: HTTP {r.status_code} differs from "
+                                         f"the direct call: {r.text[:300]}")
+            http_ms[kind, limit] = statistics.median(times) * 1e3
+            slog(f"[server] {card}: search {kind:9s} limit {limit:3d}: HTTP median {http_ms[kind, limit]:.3f} ms of {reps} "
+                f"(min {min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}), direct {direct_ms[kind, limit]:.3f} ms; "
+                f"{len(want[kind, limit, picks[-1]]['global_matches'])} global / "
+                f"{len(want[kind, limit, picks[-1]]['chunk_matches'])} chunk matches, bodies equal the direct call's")
+            # The same answer through RemoteIndex.search_assets and through urllib.
+            q = product_query(picks[0], truth[picks[0]], kind)
+            got = remote.search_assets(name, schema.IsccQuery(**q), limit=limit).model_dump(mode="json",
+                                                                                            exclude_none=True)
+            if kind == "iscc_code":
+                status, body, _ = http_json(served.base, "GET", f"/indexes/{name}/search?" +
+                                            urllib.parse.urlencode({**q, "limit": limit}))
+            else:
+                status, body, _ = http_json(served.base, "POST", f"/indexes/{name}/search?limit={limit}", q)
+            if got != want[kind, limit, picks[0]] or (status, body) != (200, want[kind, limit, picks[0]]):
+                raise AssertionError(f"[server] {kind} limit {limit}: RemoteIndex or urllib differs from the direct call")
+        times, times_direct = [], []
+        for i in picks:
+            iscc_id = product_iscc_id(i)
+            t0 = time.perf_counter()
+            r = remote.request("GET", f"/indexes/{name}/assets/{iscc_id}")
+            times.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            asset = manager.get_asset(name, iscc_id)
+            times_direct.append(time.perf_counter() - t0)
+            if r.status_code != 200 or r.json() != _dump(asset) or remote.get_asset(name, iscc_id) != asset:
+                raise AssertionError(f"[server] GET asset {i}: {r.status_code} differs from the direct call")
+        http_ms["asset", 0], direct_ms["asset", 0] = statistics.median(times) * 1e3, statistics.median(times_direct) * 1e3
+        slog(f"[server] {card}: GET /indexes/{name}/assets/{{id}}: HTTP median {http_ms['asset', 0]:.3f} ms of {reps}, direct "
+            f"{direct_ms['asset', 0]:.3f} ms; bodies equal the direct call's")
+
+        got = {}
+
+        def both_client(mine):
+            client = RemoteIndex(served.base, name)
+            try:
+                for i in mine:
+                    r = client.request("POST", f"/indexes/{name}/search", payload=product_query(i, truth[i], "both"),
+                                       params={"limit": 10})
+                    got[i] = (r.status_code, r.json())
+            finally:
+                client.close()
+
+        wall = _threads(both_client, [work[c::clients] for c in range(clients)])
+        if got != {i: (200, want_both[i]) for i in work}:
+            raise AssertionError("[server] concurrent HTTP clients: answers differ from the direct calls")
+        http_rate = len(work) / wall
+        slog(f"[server] {card}: {clients} keep-alive clients x {per_client} 'both' limit-10 requests over HTTP: {wall:.3f} s, "
+            f"{http_rate:.1f} query assets/s ([product], direct calls: {direct_rate:.1f}); answers equal the direct calls")
+
+        # Ingest over HTTP: each new asset then found by a search.
+        _, new_truth = product_assets(rng, n_new, n_sp)
+        new_wire = [product_wire(n + j, t) for j, t in enumerate(new_truth)]
+        entries = [schema.IsccEntry(**a) for a in new_wire]
+        t0 = time.perf_counter()
+        results = remote.add_assets(name, entries)
+        ingest_s = time.perf_counter() - t0
+        if [r.status.value for r in results] != ["created"] * len(entries):
+            raise AssertionError("[server] assets added over HTTP are not all 'created'")
+        t0 = time.perf_counter()
+        missing = [j for j, a in enumerate(new_wire) if a["iscc_id"] not in [
+            m.iscc_id for m in remote.search_assets(name, schema.IsccQuery(units=a["units"]), limit=10).global_matches]]
+        find_s = time.perf_counter() - t0
+        if missing:
+            raise AssertionError(f"[server] {len(missing)} assets added over HTTP are not found, e.g. {missing[:3]}")
+        stop()
+        launches = check_path_launches("[server]", dev, read_launches(), scans)
+        # Where a batch's time goes: the client's encoding, the server's
+        # decoding and validation, add_assets of a batch of the same size
+        # called directly (more new assets), and the rest.
+        batch = entries[:SERVER_CHUNK]
+        t0 = time.perf_counter()
+        body = json.dumps([a.model_dump(mode="json", exclude_unset=True) for a in batch]).encode()
+        encode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        decoded = [schema.IsccEntry(**a) for a in json.loads(body)]
+        decode_s = time.perf_counter() - t0
+        if decoded != batch:
+            raise AssertionError("[server] a batch does not decode to what was encoded")
+        direct_batch = [schema.IsccEntry(**product_wire(n + n_new + j, t))
+                        for j, t in enumerate(product_assets(rng, len(batch), n_sp)[1])]
+        t0 = time.perf_counter()
+        manager.add_assets(name, direct_batch)
+        add_s = time.perf_counter() - t0
+        n_new += len(direct_batch)
+        per_batch = ingest_s / -(-len(entries) // SERVER_CHUNK)  # seconds per RemoteIndex batch
+        slog(f"[server] {card}: POST /indexes/{name}/assets of {len(entries)} new assets in RemoteIndex batches of "
+             f"{SERVER_CHUNK}: {ingest_s:.3f} s, {len(entries) / ingest_s:.1f} assets/s over HTTP; per batch "
+             f"{per_batch * 1e3:.1f} ms: client encoding {encode_s * 1e3:.1f} ms ({len(body)} bytes), server "
+             f"decoding and validation {decode_s * 1e3:.1f} ms, add_assets of {len(batch)} called directly "
+             f"{add_s * 1e3:.1f} ms, the rest {(per_batch - encode_s - decode_s - add_s) * 1e3:.1f} ms; each asset "
+             f"then found by a units search (one client, {len(entries) / find_s:.1f} searches/s)")
+        slog(f"[server] kernel launches of the HTTP path: {launches}")
+        want_after = direct(product_query(picks[0], truth[picks[0]], "units"), 10)
+
+        # The error codes, and a 401 from a second app with an API secret.
+        for label, method, route, payload, code, detail in (
+            ("bad ISCC", "POST", f"/indexes/{name}/search", {"iscc_code": "ISCC:nope"}, 422,
+             ["iscc_code: String should match pattern '^ISCC:[A-Z2-7]{16,}$'"]),
+            ("bad name", "POST", "/indexes", {"name": "Bad-Name"}, 422,
+             ["name: String should match pattern '^[a-z][a-z0-9]*$'"]),
+            ("missing index", "GET", "/indexes/missing", None, 404, "Index 'missing' not found"),
+            ("existing index", "POST", "/indexes", {"name": name}, 409, f"Index '{name}' already exists"),
+        ):
+            status, body, _ = http_json(served.base, method, route, payload)
+            if (status, body) != (code, {"detail": detail}):
+                raise AssertionError(f"[server] {label}: {status} {body}, expected {code} {detail!r}")
+        secured = ServedApp(manager, opts.override({"api_secret": "s3cret"}))
+        try:
+            statuses = [http_json(secured.base, "GET", "/indexes", headers=h)[0]
+                        for h in ({}, {"X-API-Key": "wrong"}, {"X-API-Key": "s3cret"})]
+        finally:
+            secured.close()
+        if statuses != [401, 401, 200]:
+            raise AssertionError(f"[server] api_secret: statuses {statuses}, expected [401, 401, 200]")
+        slog("[server] 422 (bad ISCC, bad name, pydantic's messages), 404, 409; with api_secret: 401 without or "
+            "with a wrong key, 200 with it")
+        remote.close()
+    finally:
+        served.close()
+        manager.close()
+
+    # serve() itself, in a subprocess: it answers, adds, and on SIGTERM drains and flushes.
+    port = _free_port()
+    env = {**os.environ, "ISCC_SEARCH_INDEX_URI": f"tpu://{base_dir}", "ISCC_SEARCH_HOST": "127.0.0.1",
+           "ISCC_SEARCH_PORT": str(port), "PYTHONPATH": str(Path(__file__).resolve().parent)}
+    serve_log = Path(tmp) / "serve.log"
+    url = f"http://127.0.0.1:{port}"
+    late = [product_wire(n + n_new + j, t) for j, t in enumerate(product_assets(rng, 10, n_sp)[1])]
+    t0 = time.perf_counter()
+    with open(serve_log, "wb") as out:
+        call = "serve()" if dev.type == "cuda" else f"serve(device={str(dev)!r})"
+        proc = subprocess.Popen([sys.executable, "-c", f"from iscc_search_tpu_torch.server.httpd import serve; {call}"],
+                                env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        while True:
+            try:
+                if http_json(url, "GET", "/healthz")[:2] == (200, {"status": "ok"}):
+                    break
+            except OSError:
+                pass
+            if proc.poll() is not None or time.perf_counter() - t0 > 180:
+                raise AssertionError(f"[server] serve() did not answer /healthz: {serve_log.read_text()[-2000:]}")
+            time.sleep(0.25)
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        status, body, _ = http_json(url, "POST", f"/indexes/{name}/search?limit=10",
+                                    product_query(picks[0], truth[picks[0]], "units"))
+        first_s = time.perf_counter() - t0
+        if (status, body) != (200, want_after):
+            raise AssertionError(f"[server] serve(): the search answers {status}, not what the direct call gave")
+        client = RemoteIndex(url, name)
+        added = client.add_assets(name, [schema.IsccEntry(**a) for a in late])
+        client.close()
+        if [r.status.value for r in added] != ["created"] * len(late):
+            raise AssertionError("[server] serve(): the late assets are not all 'created'")
+        t0 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(120)
+        stop_s = time.perf_counter() - t0
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    text = serve_log.read_text()
+    if code != 0 or "SIGTERM received" not in text or "closing index" not in text:
+        raise AssertionError(f"[server] serve() after SIGTERM: exit {code}: {text[-2000:]}")
+    manager = get_index(f"tpu://{base_dir}", **on_card)
+    try:
+        if manager.get_index(name).assets != n + n_new + len(late):
+            raise AssertionError(f"[server] reopened after serve(): {manager.get_index(name).assets} assets")
+        for a in late:
+            res = manager.search_assets(name, schema.IsccQuery(units=a["units"]), limit=10)
+            if manager.get_asset(name, a["iscc_id"]).units != a["units"] or \
+                    a["iscc_id"] not in [m.iscc_id for m in res.global_matches]:
+                raise AssertionError(f"[server] reopened after serve(): {a['iscc_id']} is not there")
+    finally:
+        manager.close()
+    slog(f"[server] serve() in a subprocess (ISCC_SEARCH_INDEX_URI=tpu://..., the pooled transport): /healthz after "
+         f"{up_s:.1f} s, a first search ({first_s:.1f} s) equal to the direct call, {len(late)} assets added; "
+         f"SIGTERM: exit 0 after {stop_s:.1f} s, drained and flushed; reopened, they are there")
+
+    # The memory:// and kv:// backends through get_index, served and used through RemoteIndex.
+    for uri in ("memory://", f"kv://{Path(tmp) / 'kv'}"):
+        backend = get_index(uri)
+        served = ServedApp(backend, SearchOptions(index_uri=uri))
+        client = RemoteIndex(served.base, "roundtrip", chunk_size=SERVER_CHUNK // 4)
+        try:
+            client.create_index(schema.IsccIndex(name="roundtrip"))
+            items = roundtrip_assets(n_kv, 2_000_000)
+            added = client.add_assets("roundtrip", [schema.IsccEntry(**a) for a in items])
+            if [r.status.value for r in added] != ["created"] * len(items):
+                raise AssertionError(f"[server] {uri}: the assets are not all 'created'")
+            for a in items:
+                res = client.search_assets("roundtrip", schema.IsccQuery(iscc_code=a["iscc_code"]), limit=5)
+                top = res.global_matches[0] if res.global_matches else None
+                if top is None or (top.iscc_id, top.score) != (a["iscc_id"], 1.0) or \
+                        client.get_asset("roundtrip", a["iscc_id"]).units != a["units"]:
+                    raise AssertionError(f"[server] {uri}: {a['iscc_id']} is not found by its code")
+            if client.get_index("roundtrip").assets != len(items):
+                raise AssertionError(f"[server] {uri}: the index does not count {len(items)} assets")
+        finally:
+            client.close()
+            served.close()
+            backend.close()
+        slog(f"[server] {uri.split(':')[0]}:// through get_index: {len(items)} assets added, each found by its "
+            f"ISCC-CODE at score 1.0 and read back over HTTP")
+    return launches
 
 
 def phase3_split(dev, part, flat, kk, out_k):
@@ -2269,8 +2701,12 @@ def main():
         by_path["simprint"], path_stats = phase_simprint(rng, dev, tmp)
         log(f"[simprint] phase time {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        by_path["product"], product_stats = phase_product(rng, dev, tmp)
+        by_path["product"], product_stats, truth, direct_rate = phase_product(rng, dev, tmp)
         log(f"[product] phase time {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        by_path["server"] = phase_server(rng, dev, tmp, truth, direct_rate)
+        log(f"[server] phase time {time.perf_counter() - t0:.1f} s")
+        del truth
     exp_launches, exp_stats = phase_experiments(dev)
     launches.update(exp_launches)
     stats.update(exp_stats)

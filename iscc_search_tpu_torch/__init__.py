@@ -27,9 +27,16 @@ Layout (names follow the JAX package):
   entry point (``add_assets``, ``search_assets``, ``get_asset``, ``flush``)
   over a ``store.HostStore`` (the C++ store of ``native/store.cpp``, built
   with g++ at first use) and the engines
+- ``indexes.memory``, ``indexes.kv``, ``protocols.index``: the memory and
+  host-store backends and the protocol they share with ``indexes.tpu``
+- ``server``: the REST app (``server.app``, ``server.wsgi``,
+  ``server.auth``, ``server.openapi``), the pooled keep-alive HTTP transport
+  (``server.pooled``) and ``server.httpd.serve``; ``remote.RemoteIndex``,
+  the client on ``http.client``
 - ``schema``, ``options``, ``codec``, ``models``, ``utils``,
-  ``server.metrics``: the wire types (dataclasses, no pydantic), the search
-  options the backend reads, and copies of the JAX package's host modules
+  ``server.metrics``, ``aggregator``: the wire types (dataclasses, no
+  pydantic), the options and the backend factory by URI (``get_index``),
+  and copies of the JAX package's host modules
 - ``experiments``: the phase-1 A/B entry points of ``benchmarks/exp_*.py``
   over their own CUDA kernels
 """

@@ -4,20 +4,28 @@ Wire schemas of the index backend without pydantic (port of
 card's Python has no pydantic).
 
 The same classes with the same field names, order and defaults, as
-dataclasses. ``model_dump()`` returns what pydantic's returns for the same
-values (``mode="json"``, ``exclude_none`` and ``exclude`` as there), and
-``model_copy(update=...)`` copies without validation, as pydantic's does.
-Construction coerces as pydantic's lax mode does where the backend relies on
-it (nested dicts become models, ints become floats in float fields, strings
-become ``Status``) and checks the field constraints of the JAX schema
-(patterns, lengths, ranges), raising ``ValueError`` where pydantic raises
-its ``ValidationError`` (a ``ValueError`` subclass).
+dataclasses. As with pydantic:
+
+- construction coerces as pydantic's lax mode does (nested dicts become
+  models, numeric strings and bools become numbers, strings become
+  ``Status``), ignores keys that are not fields (``IsccMetadata`` keeps them,
+  pydantic's ``extra="allow"``) and checks the field constraints of the JAX
+  schema (types, patterns, lengths, ranges);
+- a failed check raises ``ValidationError`` (a ``ValueError``), whose
+  ``errors()`` gives pydantic's ``type``, ``loc`` and ``msg`` for the failed
+  field. pydantic lists every failed field; this lists the first, in field
+  order (all missing fields at once);
+- ``model_dump()`` returns what pydantic's returns for the same values
+  (``mode="json"``, ``exclude_none``, ``exclude_unset`` and ``exclude`` as
+  there), ``model_dump_json()`` the same values as compact JSON, and
+  ``model_copy(update=...)`` copies without validation, as pydantic's does.
 """
 
 from __future__ import annotations
 
 import copy
 import dataclasses
+import json
 import re
 from dataclasses import dataclass, field
 from enum import Enum
@@ -30,96 +38,221 @@ _INDEX_NAME = re.compile(r"^[a-z][a-z0-9]*$")
 _U32_MAX = 4294967295
 
 
-def _dump(value, mode, exclude_none):
-    # type: (Any, str, bool) -> Any
+class ValidationError(ValueError):
+    """A model's fields failed validation; ``errors()`` in pydantic's shape
+    (dicts with ``type``, ``loc``, ``msg`` and ``input``)."""
+
+    def __init__(self, title, errors):
+        # type: (str, list[dict]) -> None
+        self.title = title
+        self._errors = [dict(e) for e in errors]
+        n = len(self._errors)
+        lines = [f"{n} validation error{'' if n == 1 else 's'} for {title}"]
+        for e in self._errors:
+            lines += [".".join(str(p) for p in e["loc"]), f"  {e['msg']} [type={e['type']}]"]
+        super().__init__("\n".join(lines))
+
+    def errors(self):
+        # type: () -> list[dict]
+        return [dict(e) for e in self._errors]
+
+
+def _fail(obj, loc, kind, msg, value):
+    """Raise the one error of field path ``loc`` (a name or a tuple)."""
+    loc = loc if isinstance(loc, tuple) else (loc,)
+    raise ValidationError(type(obj).__name__, [{"type": kind, "loc": loc, "msg": msg, "input": value}])
+
+
+def _plural(n, word):
+    return f"{n} {word}{'' if n == 1 else 's'}"
+
+
+def _bound(value):
+    """A bound as pydantic prints it (``0``, not ``0.0``)."""
+    return int(value) if float(value).is_integer() else value
+
+
+def _dump(value, mode, exclude_none, exclude_unset):
+    # type: (Any, str, bool, bool) -> Any
     if isinstance(value, _Model):
-        return value.model_dump(mode=mode, exclude_none=exclude_none)
+        return value.model_dump(mode=mode, exclude_none=exclude_none, exclude_unset=exclude_unset)
     if isinstance(value, Enum):
         return value.value if mode == "json" else value
     if isinstance(value, dict):
-        return {k: _dump(v, mode, exclude_none) for k, v in value.items()}
+        return {k: _dump(v, mode, exclude_none, exclude_unset) for k, v in value.items()}
     if isinstance(value, list) or (mode == "json" and isinstance(value, tuple)):
-        return [_dump(v, mode, exclude_none) for v in value]
+        return [_dump(v, mode, exclude_none, exclude_unset) for v in value]
     return value
 
 
-def _fail(cls, name, msg):
-    raise ValueError(f"{cls.__name__}.{name}: {msg}")
+def _str(obj, loc, value, regex=None, min_len=None, max_len=None):
+    if not isinstance(value, str):
+        _fail(obj, loc, "string_type", "Input should be a valid string", value)
+    if min_len is not None and len(value) < min_len:
+        _fail(obj, loc, "string_too_short", f"String should have at least {_plural(min_len, 'character')}", value)
+    if max_len is not None and len(value) > max_len:
+        _fail(obj, loc, "string_too_long", f"String should have at most {_plural(max_len, 'character')}", value)
+    if regex is not None and not regex.match(value):
+        _fail(obj, loc, "string_pattern_mismatch", f"String should match pattern '{regex.pattern}'", value)
 
 
-def _pattern(obj, name, regex, optional=True):
+def _string(obj, name, regex=None, min_len=None, max_len=None, optional=True):
     value = getattr(obj, name)
     if value is None and optional:
         return
-    if not isinstance(value, str) or not regex.match(value):
-        _fail(type(obj), name, f"{value!r} does not match {regex.pattern!r}")
+    _str(obj, name, value, regex, min_len, max_len)
 
 
-def _number(obj, name, kind, lo=None, hi=None, optional=False):
-    """Coerce field ``name`` to ``kind`` (int or float) as pydantic's lax
-    mode does and check ``lo <= value <= hi``."""
-    value = getattr(obj, name)
-    if value is None and optional:
-        return
-    if isinstance(value, bool) or not isinstance(value, (int, float)):
-        _fail(type(obj), name, f"{value!r} is not a number")
+def _num(obj, loc, value, kind, lo=None, hi=None):
+    """``value`` coerced to ``kind`` (int or float) as pydantic's lax mode
+    does, checked against ``lo <= value <= hi``."""
+    raw = value
+    if isinstance(value, str):
+        try:
+            value = int(value.strip()) if kind is int else float(value.strip())
+        except ValueError:
+            if kind is int:
+                _fail(obj, loc, "int_parsing", "Input should be a valid integer, unable to parse string as an integer", raw)
+            _fail(obj, loc, "float_parsing", "Input should be a valid number, unable to parse string as a number", raw)
+    if not isinstance(value, (int, float)):
+        if kind is int:
+            _fail(obj, loc, "int_type", "Input should be a valid integer", raw)
+        _fail(obj, loc, "float_type", "Input should be a valid number", raw)
     if kind is int:
         if value != int(value):
-            _fail(type(obj), name, f"{value!r} is not an integer")
+            _fail(obj, loc, "int_from_float", "Input should be a valid integer, got a number with a fractional part", raw)
         value = int(value)
     else:
         value = float(value)
-    if (lo is not None and value < lo) or (hi is not None and value > hi):
-        _fail(type(obj), name, f"{value!r} outside [{lo}, {hi}]")
-    setattr(obj, name, value)
+    if value != value and hi is not None:  # NaN: pydantic reports the upper bound
+        _fail(obj, loc, "less_than_equal", f"Input should be less than or equal to {_bound(hi)}", raw)
+    if lo is not None and value < lo:
+        _fail(obj, loc, "greater_than_equal", f"Input should be greater than or equal to {_bound(lo)}", raw)
+    if hi is not None and value > hi:
+        _fail(obj, loc, "less_than_equal", f"Input should be less than or equal to {_bound(hi)}", raw)
+    return value
 
 
-def _min_len(obj, name, n):
+def _number(obj, name, kind, lo=None, hi=None, optional=False):
     value = getattr(obj, name)
-    if value is not None and len(value) < n:
-        _fail(type(obj), name, f"needs at least {n} items, got {len(value)}")
+    if value is None and optional:
+        return
+    setattr(obj, name, _num(obj, name, value, kind, lo, hi))
 
 
-def _model(cls, value):
-    """A nested model from its dict; a missing or unknown field raises
-    ValueError, as pydantic's ValidationError does."""
-    if isinstance(value, cls) or value is None:
-        return value
+def _list(obj, loc, value, min_items=0):
+    if not isinstance(value, (list, tuple)):
+        _fail(obj, loc, "list_type", "Input should be a valid list", value)
+    if len(value) < min_items:
+        msg = f"List should have at least {_plural(min_items, 'item')} after validation, not {len(value)}"
+        _fail(obj, loc, "too_short", msg, value)
+    return list(value)
+
+
+def _dict(obj, loc, value, min_items=0):
     if not isinstance(value, dict):
-        raise ValueError(f"{cls.__name__}: {value!r} is not a dict")
+        _fail(obj, loc, "dict_type", "Input should be a valid dictionary", value)
+    if len(value) < min_items:
+        msg = f"Dictionary should have at least {_plural(min_items, 'item')} after validation, not {len(value)}"
+        _fail(obj, loc, "too_short", msg, value)
+    return value
+
+
+def _model(obj, loc, cls, value, optional=True):
+    """A nested model from its dict; its errors carry ``loc`` in front."""
+    if isinstance(value, cls) or (value is None and optional):
+        return value
+    loc = loc if isinstance(loc, tuple) else (loc,)
+    if not isinstance(value, dict):
+        _fail(obj, loc, "model_type", f"Input should be a valid dictionary or instance of {cls.__name__}", value)
     try:
         return cls(**value)
-    except TypeError as exc:
-        raise ValueError(f"{cls.__name__}: {exc}") from None
+    except ValidationError as exc:
+        errors = [{**e, "loc": loc + tuple(e["loc"])} for e in exc.errors()]
+        raise ValidationError(type(obj).__name__, errors) from None
+
+
+def _models(obj, name, cls):
+    """A list field of nested models."""
+    items = _list(obj, name, getattr(obj, name))
+    setattr(obj, name, [_model(obj, (name, i), cls, v, optional=False) for i, v in enumerate(items)])
+
+
+def _wire(cls):
+    """``dataclass(cls)`` whose constructor, as pydantic's, takes keywords
+    only, ignores keys that are not fields, reports missing fields as
+    ``ValidationError`` and records the fields it was given (for
+    ``exclude_unset``)."""
+    cls = dataclass(cls)
+    init = cls.__init__
+    fields = dataclasses.fields(cls)
+    names = {f.name for f in fields}
+    required = [
+        f.name for f in fields if f.default is dataclasses.MISSING and f.default_factory is dataclasses.MISSING
+    ]
+
+    def __init__(self, **values):
+        given = {k: v for k, v in values.items() if k in names}
+        missing = [name for name in required if name not in given]
+        if missing:
+            errors = [{"type": "missing", "loc": (n,), "msg": "Field required", "input": values} for n in missing]
+            raise ValidationError(cls.__name__, errors)
+        object.__setattr__(self, "_fields_set", frozenset(given))
+        init(self, **given)
+
+    __init__.__qualname__ = f"{cls.__qualname__}.__init__"
+    cls.__init__ = __init__
+    return cls
 
 
 class _Model:
-    """``model_dump`` / ``model_copy`` over the dataclass fields, in order."""
+    """``model_dump`` / ``model_dump_json`` / ``model_copy`` over the
+    dataclass fields, in order."""
 
-    def model_dump(self, mode="python", exclude_none=False, exclude=None):
-        # type: (str, bool, set | None) -> dict
+    _fields_set = frozenset()
+
+    @property
+    def model_fields_set(self):
+        # type: () -> set[str]
+        return set(self._fields_set)
+
+    def _items(self):
+        return [(f.name, getattr(self, f.name)) for f in dataclasses.fields(self)]
+
+    def model_dump(self, mode="python", exclude_none=False, exclude=None, exclude_unset=False):
+        # type: (str, bool, set | None, bool) -> dict
         out = {}
-        for f in dataclasses.fields(self):
-            value = getattr(self, f.name)
-            if (exclude and f.name in exclude) or (exclude_none and value is None):
+        for name, value in self._items():
+            if (exclude and name in exclude) or (exclude_none and value is None):
                 continue
-            out[f.name] = _dump(value, mode, exclude_none)
+            if exclude_unset and name not in self._fields_set:
+                continue
+            out[name] = _dump(value, mode, exclude_none, exclude_unset)
         return out
+
+    def model_dump_json(self, exclude_none=False, exclude_unset=False):
+        # type: (bool, bool) -> str
+        """Compact JSON of ``model_dump(mode="json", ...)`` (pydantic's
+        separators; float reprs may differ from pydantic's bytes, never in
+        value)."""
+        data = self.model_dump(mode="json", exclude_none=exclude_none, exclude_unset=exclude_unset)
+        return json.dumps(data, separators=(",", ":"), ensure_ascii=False)
 
     def model_copy(self, update=None):
         # type: (dict | None) -> _Model
         new = copy.copy(self)
         for name, value in (update or {}).items():
             setattr(new, name, value)
+        object.__setattr__(new, "_fields_set", self._fields_set | set(update or ()))
         return new
 
 
-@dataclass
+@_wire
 class HttpError(_Model):
     detail: str | list[str]
 
 
-@dataclass
+@_wire
 class IsccIndex(_Model):
     name: str
     assets: int | None = None
@@ -127,44 +260,55 @@ class IsccIndex(_Model):
     sizes: dict[str, int] | None = None
 
     def __post_init__(self):
-        if not isinstance(self.name, str) or not 1 <= len(self.name) <= 32:
-            _fail(IsccIndex, "name", f"{self.name!r} must be 1-32 characters")
-        _pattern(self, "name", _INDEX_NAME, optional=False)
+        _string(self, "name", _INDEX_NAME, min_len=1, max_len=32, optional=False)
         _number(self, "assets", int, lo=0, optional=True)
         _number(self, "size", int, lo=0, optional=True)
-        if self.sizes is not None and any(v < 0 for v in self.sizes.values()):
-            _fail(IsccIndex, "sizes", "sizes must be >= 0")
+        if self.sizes is not None:
+            sizes = _dict(self, "sizes", self.sizes)
+            self.sizes = {k: _num(self, ("sizes", k), v, int, lo=0) for k, v in sizes.items()}
 
 
-@dataclass
+@_wire
 class IsccSimprint(_Model):
     simprint: str
     offset: int
     size: int
 
     def __post_init__(self):
-        if not isinstance(self.simprint, str) or len(self.simprint) < 11:
-            _fail(IsccSimprint, "simprint", f"{self.simprint!r} is shorter than 11 characters")
-        _pattern(self, "simprint", _BASE64, optional=False)
+        _string(self, "simprint", _BASE64, min_len=11, optional=False)
         _number(self, "offset", int, lo=0, hi=_U32_MAX)
         _number(self, "size", int, lo=0, hi=_U32_MAX)
 
 
+def _strings(obj, name, min_items):
+    """An optional list-of-strings field with at least ``min_items`` items."""
+    value = getattr(obj, name)
+    if value is None:
+        return
+    items = _list(obj, name, value, min_items)
+    for i, item in enumerate(items):
+        _str(obj, (name, i), item)
+    setattr(obj, name, items)
+
+
 def _simprint_groups(obj, name, item):
-    """Coerce a {type: [item, ...]} field, each list non-empty."""
+    """Coerce an optional {type: [item, ...]} field, each list non-empty."""
     groups = getattr(obj, name)
     if groups is None:
         return
-    if not isinstance(groups, dict):
-        _fail(type(obj), name, "must be a dict of lists")
-    for sp_type, items in groups.items():
-        if not isinstance(items, list) or not items:
-            _fail(type(obj), name, f"group {sp_type!r} must be a non-empty list")
-    if item is not str:
-        setattr(obj, name, {t: [_model(item, v) for v in items] for t, items in groups.items()})
+    out = {}
+    for sp_type, items in _dict(obj, name, groups).items():
+        items = _list(obj, (name, sp_type), items, 1)
+        if item is str:
+            for i, v in enumerate(items):
+                _str(obj, (name, sp_type, i), v)
+            out[sp_type] = items
+        else:
+            out[sp_type] = [_model(obj, (name, sp_type, i), item, v, optional=False) for i, v in enumerate(items)]
+    setattr(obj, name, out)
 
 
-@dataclass
+@_wire
 class IsccQuery(_Model):
     iscc_id: str | None = None
     iscc_code: str | None = None
@@ -172,9 +316,9 @@ class IsccQuery(_Model):
     simprints: dict[str, list[str]] | None = None
 
     def __post_init__(self):
-        _pattern(self, "iscc_id", _ISCC_ID)
-        _pattern(self, "iscc_code", _ISCC_CODE)
-        _min_len(self, "units", 1)
+        _string(self, "iscc_id", _ISCC_ID)
+        _string(self, "iscc_code", _ISCC_CODE)
+        _strings(self, "units", 1)
         _simprint_groups(self, "simprints", str)
 
 
@@ -183,38 +327,35 @@ class Status(str, Enum):
     updated = "updated"
 
 
-@dataclass
+@_wire
 class IsccAddResult(_Model):
     iscc_id: str
     status: Status
 
     def __post_init__(self):
-        _pattern(self, "iscc_id", _ISCC_ID, optional=False)
-        self.status = Status(self.status)
+        _string(self, "iscc_id", _ISCC_ID, optional=False)
+        try:
+            self.status = Status(self.status)
+        except ValueError:
+            _fail(self, "status", "enum", "Input should be 'created' or 'updated'", self.status)
 
 
 class IsccMetadata(_Model):
     """Metadata with extra fields allowed: ``name`` and ``source``, then the
     extras in their given order (pydantic's ``extra="allow"`` dump)."""
 
-    def __init__(self, name=None, source=None, **extra):
-        # type: (str | None, str | None, ...) -> None
+    def __init__(self, **values):
+        # type: (...) -> None
         for key in ("name", "source"):
-            value = locals()[key]
-            if value is not None and not isinstance(value, str):
-                _fail(IsccMetadata, key, f"{value!r} is not a string")
-        self.name = name
-        self.source = source
-        self.extra = extra
+            if values.get(key) is not None:
+                _str(self, key, values[key])
+        self._fields_set = frozenset(values)
+        self.name = values.pop("name", None)
+        self.source = values.pop("source", None)
+        self.extra = values
 
-    def model_dump(self, mode="python", exclude_none=False, exclude=None):
-        # type: (str, bool, set | None) -> dict
-        items = {"name": self.name, "source": self.source, **self.extra}
-        return {
-            k: _dump(v, mode, exclude_none)
-            for k, v in items.items()
-            if not (exclude and k in exclude) and not (exclude_none and v is None)
-        }
+    def _items(self):
+        return [("name", self.name), ("source", self.source), *self.extra.items()]
 
     def __eq__(self, other):
         return isinstance(other, IsccMetadata) and self.model_dump() == other.model_dump()
@@ -223,7 +364,7 @@ class IsccMetadata(_Model):
         return f"IsccMetadata({self.model_dump()!r})"
 
 
-@dataclass
+@_wire
 class IsccMatchedChunk(_Model):
     query: str
     match: str
@@ -234,15 +375,16 @@ class IsccMatchedChunk(_Model):
     content: str | None = None
 
     def __post_init__(self):
-        _pattern(self, "query", _BASE64, optional=False)
-        _pattern(self, "match", _BASE64, optional=False)
+        _string(self, "query", _BASE64, optional=False)
+        _string(self, "match", _BASE64, optional=False)
         _number(self, "score", float, lo=0.0, hi=1.0)
         _number(self, "freq", int, lo=1)
         _number(self, "offset", int, lo=0, hi=_U32_MAX)
         _number(self, "size", int, lo=0, hi=_U32_MAX)
+        _string(self, "content")
 
 
-@dataclass
+@_wire
 class IsccEntry(_Model):
     iscc_id: str | None = None
     iscc_code: str | None = None
@@ -251,25 +393,21 @@ class IsccEntry(_Model):
     metadata: dict[str, Any] | None = None
 
     def __post_init__(self):
-        _pattern(self, "iscc_id", _ISCC_ID)
-        _pattern(self, "iscc_code", _ISCC_CODE)
-        _min_len(self, "units", 2)
+        _string(self, "iscc_id", _ISCC_ID)
+        _string(self, "iscc_code", _ISCC_CODE)
+        _strings(self, "units", 2)
         _simprint_groups(self, "simprints", IsccSimprint)
-        if self.metadata is not None and not isinstance(self.metadata, dict):
-            _fail(IsccEntry, "metadata", "must be a dict")
+        if self.metadata is not None:
+            _dict(self, "metadata", self.metadata)
 
 
 def _unit_scores(obj, name):
-    scores = getattr(obj, name)
-    if not isinstance(scores, dict) or not scores:
-        _fail(type(obj), name, "must be a non-empty dict")
-    for key, value in scores.items():
-        if isinstance(value, bool) or not isinstance(value, (int, float)) or not 0.0 <= value <= 1.0:
-            _fail(type(obj), name, f"{key!r}: {value!r} outside [0, 1]")
-    setattr(obj, name, {k: float(v) for k, v in scores.items()})
+    """A non-empty {type: score in [0, 1]} field."""
+    scores = _dict(obj, name, getattr(obj, name), 1)
+    setattr(obj, name, {k: _num(obj, (name, k), v, float, lo=0.0, hi=1.0) for k, v in scores.items()})
 
 
-@dataclass
+@_wire
 class IsccGlobalMatch(_Model):
     iscc_id: str
     score: float
@@ -277,13 +415,13 @@ class IsccGlobalMatch(_Model):
     metadata: IsccMetadata | None = None
 
     def __post_init__(self):
-        _pattern(self, "iscc_id", _ISCC_ID, optional=False)
+        _string(self, "iscc_id", _ISCC_ID, optional=False)
         _number(self, "score", float, lo=0.0, hi=1.0)
         _unit_scores(self, "types")
-        self.metadata = _model(IsccMetadata, self.metadata)
+        self.metadata = _model(self, "metadata", IsccMetadata, self.metadata)
 
 
-@dataclass
+@_wire
 class Types(_Model):
     score: float
     matches: int
@@ -295,10 +433,10 @@ class Types(_Model):
         _number(self, "matches", int, lo=0)
         _number(self, "queried", int, lo=1)
         if self.chunks is not None:
-            self.chunks = [_model(IsccMatchedChunk, c) for c in self.chunks]
+            _models(self, "chunks", IsccMatchedChunk)
 
 
-@dataclass
+@_wire
 class IsccChunkMatch(_Model):
     iscc_id: str
     score: float
@@ -307,21 +445,21 @@ class IsccChunkMatch(_Model):
     metadata: IsccMetadata | None = None
 
     def __post_init__(self):
-        _pattern(self, "iscc_id", _ISCC_ID, optional=False)
+        _string(self, "iscc_id", _ISCC_ID, optional=False)
         _number(self, "score", float, lo=0.0, hi=1.0)
-        if not isinstance(self.types, dict) or not self.types:
-            _fail(IsccChunkMatch, "types", "must be a non-empty dict")
-        self.types = {k: _model(Types, v) for k, v in self.types.items()}
-        self.metadata = _model(IsccMetadata, self.metadata)
+        types = _dict(self, "types", self.types, 1)
+        self.types = {k: _model(self, ("types", k), Types, v, optional=False) for k, v in types.items()}
+        _string(self, "source")
+        self.metadata = _model(self, "metadata", IsccMetadata, self.metadata)
 
 
-@dataclass
+@_wire
 class IsccSearchResult(_Model):
     query: IsccQuery
     global_matches: list[IsccGlobalMatch]
     chunk_matches: list[IsccChunkMatch] = field(default_factory=list)
 
     def __post_init__(self):
-        self.query = _model(IsccQuery, self.query)
-        self.global_matches = [_model(IsccGlobalMatch, m) for m in self.global_matches]
-        self.chunk_matches = [_model(IsccChunkMatch, m) for m in self.chunk_matches]
+        self.query = _model(self, "query", IsccQuery, self.query, optional=False)
+        _models(self, "global_matches", IsccGlobalMatch)
+        _models(self, "chunk_matches", IsccChunkMatch)

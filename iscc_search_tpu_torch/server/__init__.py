@@ -1,1 +1,5 @@
-"""The serving layer's metrics registry (the rest of ``server/`` is not ported yet)."""
+"""REST API server (pure WSGI; servable via the threaded stdlib server)."""
+
+from iscc_search_tpu_torch.server.app import create_app
+
+__all__ = ["create_app"]

@@ -404,15 +404,29 @@ ENV_CASES = [
     {"ISCC_SEARCH_FLUSH_INTERVAL": "0", "ISCC_SEARCH_QUERY_BATCH_MAX": "7", "ISCC_SEARCH_OVERSAMPLING_FACTOR": "3",
      "ISCC_SEARCH_SEARCH_BATCHING": "no", "ISCC_SEARCH_SCAN_KERNEL": "auto", "ISCC_SEARCH_UNRELATED": "x"},
     {"ISCC_SEARCH_MATCH_THRESHOLD_SIMPRINTS": "1", "ISCC_SEARCH_MULTIHOST_CONTROL_PORT": "65535", "ISCC_SEARCH_SHARD_SIZE_SIMPRINTS": ""},
+    # the server, aggregator, logging and sentry fields
+    {"ISCC_SEARCH_INDEX_URI": "kv:///data/x", "ISCC_SEARCH_API_SECRET": "s", "ISCC_SEARCH_CORS_ORIGINS": "https://a, https://b",
+     "ISCC_SEARCH_HOST": "127.0.0.1", "ISCC_SEARCH_PORT": "9000", "ISCC_SEARCH_WORKERS": "4",
+     "ISCC_SEARCH_HTTP_BACKEND": "wsgiref", "ISCC_SEARCH_HTTP_THREADS": "1", "ISCC_SEARCH_HTTP_MAX_PENDING": "0",
+     "ISCC_SEARCH_HTTP_QUEUE_DEADLINE_MS": "0", "ISCC_SEARCH_SCALEOUT_BREAKER_MS": "12.5", "ISCC_SEARCH_DISTRIBUTED": "yes"},
+    {"ISCC_SEARCH_AGGREGATOR_NETWORK": "mainnet", "ISCC_SEARCH_AGGREGATOR_HUB_LIST_URL": "https://hubs.example/list.yaml",
+     "ISCC_SEARCH_AGGREGATOR_POLL_INTERVAL": "1", "ISCC_SEARCH_AGGREGATOR_HUB_REFRESH_INTERVAL": "7200",
+     "ISCC_SEARCH_AGGREGATOR_CONVERT_WORKERS": "8", "ISCC_SEARCH_LOG_LEVEL": "debug",
+     "ISCC_SEARCH_SENTRY_DSN": "https://key@sentry.example/1", "ISCC_SEARCH_SENTRY_TRACES_SAMPLE_RATE": "1.0"},
+    {"ISCC_SEARCH_AGGREGATOR_NETWORK": "testnet", "ISCC_SEARCH_HTTP_BACKEND": "pooled", "ISCC_SEARCH_DISTRIBUTED": "0",
+     "ISCC_SEARCH_AGGREGATOR_CONVERT_WORKERS": "0", "ISCC_SEARCH_SENTRY_TRACES_SAMPLE_RATE": "0"},
 ]
+PROPERTIES = ["cors_origins_list", "aggregator_mode", "aggregator_hub_list_source"]
 
 
 @pytest.mark.parametrize("env", ENV_CASES)
 def test_options_parse_the_environment_as_the_jax_options(env):
     ours, theirs = options.SearchOptions.from_env(env), jax_options.SearchOptions.from_env(env)
-    for name in OPTION_FIELDS:
+    for name in OPTION_FIELDS + PROPERTIES:
         assert getattr(ours, name) == getattr(theirs, name), name
         assert type(getattr(ours, name)) is type(getattr(theirs, name)), name
+    if ours.aggregator_mode:
+        assert ours.aggregator_index_name == theirs.aggregator_index_name
 
 
 @pytest.mark.parametrize(
@@ -420,13 +434,42 @@ def test_options_parse_the_environment_as_the_jax_options(env):
     [{"ISCC_SEARCH_SHARD_SIZE_UNITS": "0"}, {"ISCC_SEARCH_MATCH_THRESHOLD_UNITS": "1.5"},
      {"ISCC_SEARCH_SCAN_RECALL_TARGET": "0"}, {"ISCC_SEARCH_MULTIHOST_CONTROL_PORT": "70000"},
      {"ISCC_SEARCH_SEARCH_BATCHING": "maybe"}, {"ISCC_SEARCH_QUERY_BATCH_MAX": "1.5"},
-     {"ISCC_SEARCH_CONFIDENCE_EXPONENT": "two"}],
+     {"ISCC_SEARCH_CONFIDENCE_EXPONENT": "two"}, {"ISCC_SEARCH_HTTP_BACKEND": "nginx"},
+     {"ISCC_SEARCH_HTTP_BACKEND": "Pooled"}, {"ISCC_SEARCH_HTTP_THREADS": "0"}, {"ISCC_SEARCH_HTTP_MAX_PENDING": "-1"},
+     {"ISCC_SEARCH_HTTP_QUEUE_DEADLINE_MS": "-0.5"}, {"ISCC_SEARCH_SCALEOUT_BREAKER_MS": "-1"},
+     {"ISCC_SEARCH_PORT": "http"}, {"ISCC_SEARCH_WORKERS": "two"}, {"ISCC_SEARCH_DISTRIBUTED": "maybe"},
+     {"ISCC_SEARCH_AGGREGATOR_NETWORK": "devnet"}, {"ISCC_SEARCH_AGGREGATOR_POLL_INTERVAL": "0"},
+     {"ISCC_SEARCH_AGGREGATOR_HUB_REFRESH_INTERVAL": "0"}, {"ISCC_SEARCH_AGGREGATOR_CONVERT_WORKERS": "9"},
+     {"ISCC_SEARCH_AGGREGATOR_CONVERT_WORKERS": "-1"}, {"ISCC_SEARCH_SENTRY_TRACES_SAMPLE_RATE": "1.01"}],
 )
 def test_options_refuse_what_the_jax_options_refuse(env):
     with pytest.raises(ValidationError):
         jax_options.SearchOptions.from_env(env)
     with pytest.raises(ValueError):
         options.SearchOptions.from_env(env)
+
+
+@pytest.mark.parametrize("xdg", [None, "", "   ", "/srv/data", "relative/dir"])
+def test_the_default_index_uri_is_the_jax_default(xdg, monkeypatch):
+    """The platform data directory without platformdirs: $XDG_DATA_HOME (when
+    not blank) or ~/.local/share, then iscc-search-tpu, as a tpu:// URI."""
+    if xdg is None:
+        monkeypatch.delenv("XDG_DATA_HOME", raising=False)
+    else:
+        monkeypatch.setenv("XDG_DATA_HOME", xdg)
+    ours, theirs = options.SearchOptions().index_uri, jax_options.SearchOptions().index_uri
+    assert ours == theirs and ours.startswith("tpu:///") and ours.endswith("/iscc-search-tpu")
+    assert options.user_data_dir() == __import__("iscc_search_tpu").dirs.user_data_dir
+
+
+def test_option_properties_equal_the_jax_options():
+    for values in ({}, {"aggregator_network": "testnet"}, {"aggregator_network": "mainnet", "cors_origins": " a ,b"},
+                   {"aggregator_network": "", "aggregator_hub_list_url": "https://x"}):
+        ours, theirs = options.SearchOptions(**values), jax_options.SearchOptions(**values)
+        for name in PROPERTIES + ["aggregator_network"]:
+            assert getattr(ours, name) == getattr(theirs, name), (values, name)
+        if ours.aggregator_mode:
+            assert ours.aggregator_index_name == theirs.aggregator_index_name
 
 
 def test_option_override():

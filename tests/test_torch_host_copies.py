@@ -65,6 +65,33 @@ COPIES = {
     "engine.batcher": ((), (), ()),
     "indexes.common": ((), (), ()),
     "server.metrics": ((), (), ()),
+    "protocols.index": ((), (), ()),
+    "aggregator": ((), (), ()),
+    "indexes.memory.index": ((), (), ()),
+    "indexes.kv.index": ((), (), ()),
+    "indexes.kv.manager": ((), (), ()),
+    "server.wsgi": ((), (), ()),
+    "server.auth": ((), (), ()),
+    "server.app": ((), (), ()),
+    "server.pooled": ((), (), ()),
+    # A dataclass in place of the pydantic model (its validation in
+    # __post_init__, its default directory without platformdirs); the
+    # factories take the device argument.
+    "options": (
+        ("SearchOptions.from_env", "SearchOptions.override", "get_index", "manager_for"),
+        ("SearchOptions.validate_aggregator_network",),
+        ("SearchOptions.__init__", "SearchOptions.__post_init__", "SearchOptions.__eq__", "SearchOptions.__repr__",
+         "_parse", "_default_convert_workers", "user_data_dir"),
+    ),
+    # The component schemas come from a data file, not from pydantic.
+    "server.openapi": (("build_openapi",), (), ()),
+    # The device argument; multi-host serving, scale-out and aggregator mode raise.
+    "server.httpd": (
+        ("serve",),
+        ("AggregatorRunner.__init__", "AggregatorRunner.start", "AggregatorRunner.stop", "_multihost_index_name",
+         "_serve_follower"),
+        (),
+    ),
     # The shared library is built with g++ into build/, never with make
     # inside the package.
     "store.kv": (("_load_library",), ("_lib_is_fresh", "_build_library"), ("build_key", "_build_library")),
@@ -101,3 +128,25 @@ def test_the_store_source_is_a_copy():
 
     root = Path(__file__).resolve().parents[1]
     assert (root / PORT / "native" / "store.cpp").read_bytes() == (root / JAX / "native" / "store.cpp").read_bytes()
+
+
+def test_the_static_files_are_copies():
+    """The web frontend is served byte for byte as the JAX package serves it.
+    One line differs: app.js's leading comment cites the reference frontend
+    by its path in the reference repository, not by an absolute path."""
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1]
+    ref, port = root / JAX / "server" / "static", root / PORT / "server" / "static"
+    names = sorted(p.name for p in ref.iterdir())
+    assert sorted(p.name for p in port.iterdir()) == names == ["aggregator.html", "app.js", "index.html", "style.css"]
+    for name in names:
+        a, b = (ref / name).read_bytes(), (port / name).read_bytes()
+        if name == "app.js":
+            a_lines, b_lines = a.split(b"\n"), b.split(b"\n")
+            differ = [i for i, (x, y) in enumerate(zip(a_lines, b_lines)) if x != y]
+            assert len(a_lines) == len(b_lines) and differ == [5], differ
+            assert b_lines[5] == b" * the reference frontend's iscc_search/server/static/js/app.js:1-2)."
+            assert b'"use strict";' not in b"\n".join(b_lines[:7])  # inside the comment
+        else:
+            assert a == b, name

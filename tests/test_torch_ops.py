@@ -580,7 +580,7 @@ def test_build_compiles_every_source_at_once_then_links(tmp_path, monkeypatch, f
 _BLOCKER = """
 import importlib, importlib.util, pkgutil, sys
 
-BLOCKED = ("jax", "jaxlib", "platformdirs", "pydantic", "pydantic_core", "iscc_search_tpu")
+BLOCKED = ("jax", "jaxlib", "platformdirs", "pydantic", "pydantic_core", "httpx", "click", "rich", "iscc_search_tpu")
 
 class Blocker:
     def find_spec(self, name, path=None, target=None):
@@ -640,6 +640,22 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "iscc_search_tpu_torch.experiments.exp_bitplane_ablate",
         "iscc_search_tpu_torch.experiments.bitplane_layout",
         "iscc_search_tpu_torch.ops.small_layout",
+        "iscc_search_tpu_torch.protocols.index",
+        "iscc_search_tpu_torch.aggregator",
+        "iscc_search_tpu_torch.indexes.memory",
+        "iscc_search_tpu_torch.indexes.memory.index",
+        "iscc_search_tpu_torch.indexes.kv",
+        "iscc_search_tpu_torch.indexes.kv.index",
+        "iscc_search_tpu_torch.indexes.kv.manager",
+        "iscc_search_tpu_torch.remote",
+        "iscc_search_tpu_torch.remote.client",
+        "iscc_search_tpu_torch.server",
+        "iscc_search_tpu_torch.server.app",
+        "iscc_search_tpu_torch.server.auth",
+        "iscc_search_tpu_torch.server.httpd",
+        "iscc_search_tpu_torch.server.openapi",
+        "iscc_search_tpu_torch.server.pooled",
+        "iscc_search_tpu_torch.server.wsgi",
     } <= set(names)
 
 
@@ -711,10 +727,11 @@ def test_chip_smoke_measures_both_sides_of_every_auto_threshold():
 
 
 def test_chip_smoke_simprint_and_product_phases_run_on_the_cpu(tmp_path, request):
-    """The two asset-level phases of the smoke run, end to end at a tiny
-    size on the CPU (the wrappers' plain versions): every check they make
-    on the card passes here too. Their full sizes: BASELINE config 4's
-    100,000,000 chunk rows and the 20,000-asset product cell."""
+    """The asset-level phases of the smoke run, end to end at a tiny size on
+    the CPU (the wrappers' plain versions): every check they make on the
+    card passes here too. Their full sizes: BASELINE config 4's 100,000,000
+    chunk rows, the 20,000-asset product cell, and the server's 1,000 assets
+    added over HTTP."""
     from iscc_search_tpu_torch.engine import device_index as di
 
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
@@ -730,7 +747,14 @@ def test_chip_smoke_simprint_and_product_phases_run_on_the_cpu(tmp_path, request
     assert set(launches) == set(stats) == set(mod.PATH_KERNELS)
     assert {s["q"] for s in stats["blockmax_small"]} == {5, 20} and len(stats["blockmax_mma_packed"]) == 3
     assert all(s["max_abs_err"] == 0.0 for entries in stats.values() for s in entries)
-    launches, stats = mod.phase_product(rng, dev, tmp_path, n_assets=60, n_sp=12, n_cpu=30, reps=1, clients=2, per_client=1)
-    assert set(launches) == set(mod.PATH_KERNELS)
+    launches, stats, truth, rate = mod.phase_product(rng, dev, tmp_path, n_assets=60, n_sp=12, n_cpu=30, reps=1,
+                                                     clients=2, per_client=1)
+    assert set(launches) == set(mod.PATH_KERNELS) and len(truth) == 60 and rate > 0
     assert set(stats) == {mod.ROUTE_KERNELS[di.auto_phase1(12, 4)], "gather_rescore"}
     assert all(s["max_abs_err"] == 0.0 for entries in stats.values() for s in entries)
+    # [server]: the product index behind the REST app over real sockets and serve() in a subprocess.
+    assert [p.name for p in (tmp_path / mod.PRODUCT_BASE).iterdir()] == [mod.PRODUCT_NAME]
+    launches = mod.phase_server(rng, dev, tmp_path, truth, rate, n_new=20, n_sp=12, n_kv=10, reps=1, clients=2,
+                                per_client=1)
+    assert set(launches) == set(mod.PATH_KERNELS)
+    assert (mod.SERVER_NEW_ASSETS, mod.SERVER_CHUNK, mod.SERVER_KV_ASSETS) == (1000, 100, 100)
