@@ -148,13 +148,36 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    in a subprocess (``ISCC_SEARCH_INDEX_URI``, ``_PORT``, ``_HOST``): a
    search equal to the direct call, 10 assets added, SIGTERM, exit 0, and
    the reopened index holds them; ``memory://`` and ``kv://`` through
-   ``get_index``, 100 assets each over HTTP.
+   ``get_index``, 100 assets each over HTTP. The 8 clients' load is also
+   sent from client subprocesses (4 x 2 keep-alive connections, the
+   standard library only), so the clients do not share the server's GIL;
+12. scaleout — ``serve_scaleout`` (``serve --workers N``) on a thread of
+   this process, the engine, over the product index on the card, with N =
+   min(4, runnable cores - 1) ``SO_REUSEPORT`` worker processes (exactly N,
+   read from /proc, none with a context on the card by ``nvidia-smi``, each
+   with ``CUDA_VISIBLE_DEVICES=""``): every search kind at limit 10 and 100
+   through the workers, each body equal to [server]'s direct answers of the
+   reopened index, with the hop's added ms; the 8 clients from client
+   subprocesses beside [server]'s single process under the same load; 1,000
+   assets added over HTTP, each found; a 503 with Retry-After from an
+   engine endpoint with an in-flight bound of 1; a worker SIGKILLed and
+   respawned while searches keep succeeding; stopped by its event;
+13. cli — ``python -m iscc_search_tpu_torch.cli`` in fresh processes on the
+   card (its default device), ``HOME`` in a temporary directory: ``index
+   add``, ``add`` of 1,000 product-style assets (an .iscc.json file, a
+   directory, an NDJSON file), ``index list``, ``get``, ``search --json`` by
+   code and ISCC-ID, ``index rebuild --all``, ``serve --workers 2`` (a
+   search, SIGTERM, exit 0), ``index remove``; then the index opened here
+   holds every asset and the outputs equal the direct calls. Each process's
+   split: the CLI's and torch's import (``-X importtime``), opening the
+   index and the call (the CLI's timers); last, a cold ``search`` of the
+   product index.
 
-Phases 9-11 run after phase 7 and set the launch counts to 0 just before
+Phases 9-12 run after phase 7 and set the launch counts to 0 just before
 they drive their path and read them just after (phase 10's kernel-against-
-plain launches are not counted; phase 11 counts its HTTP requests alone);
-the JSON summary's ``launches`` of the path kernels is the sum over the four
-search paths, ``launches_by_path`` splits it, and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
+plain launches are not counted; phases 11 and 12 count their HTTP requests
+alone); the JSON summary's ``launches`` of the path kernels is the sum over
+the five search paths, ``launches_by_path`` splits it, and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
 10's kernel-against-plain numbers, one entry per shape (for
 ``gather_rescore`` the routed form's, with both forms' times).
 ``gather_rescore`` also carries ``by_form``, every [gather] point, and
@@ -186,10 +209,13 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import functools
 import itertools
 import json
 import os
+import pickle
+import re
 import shutil
 import signal
 import socket
@@ -228,9 +254,11 @@ from iscc_search_tpu_torch.ops import wgmma_layout
 from iscc_search_tpu_torch.ops.nphd import hamming_scores, nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix, topk_blocks_hier
+from iscc_search_tpu_torch import options as options_mod
 from iscc_search_tpu_torch.options import SearchOptions, get_index
 from iscc_search_tpu_torch.remote import RemoteIndex
 from iscc_search_tpu_torch.server import metrics
+from iscc_search_tpu_torch.server import scaleout as so
 from iscc_search_tpu_torch.server.app import create_app
 from iscc_search_tpu_torch.server.openapi import build_openapi
 from iscc_search_tpu_torch.server.pooled import PooledHTTPServer
@@ -1218,6 +1246,53 @@ def host_split(tag, fn, parts, reps=1):
                                         for (path, _, func), v in top))
 
 
+_IDLE = {"wait", "select", "poll", "accept", "sleep", "_wait_for_tstate_lock", "recv_into", "readinto", "get",
+         "acquire", "_recv_exact", "serve_forever", "_accept_loop", "join"}
+
+
+def sample_stacks(tag, fn, interval=0.005, top=10):
+    """Where every thread's time goes during ``fn()`` (it may hand work to
+    other threads: the batchers, an IPC handler): a sampler thread reads
+    ``sys._current_frames()`` every ``interval`` s and counts, per busy
+    thread (its innermost frame not an idle wait), the innermost function of
+    the port and the innermost function of all. Returns ``fn()``'s result;
+    logs the wall time and the top functions by share of the samples."""
+    import collections
+
+    port_hits, inner_hits, samples, done = collections.Counter(), collections.Counter(), [0], threading.Event()
+
+    def sampler():
+        while not done.wait(interval):
+            samples[0] += 1
+            for ident, frame in sys._current_frames().items():
+                if ident == threading.get_ident() or frame.f_code.co_name in _IDLE:
+                    continue
+                inner = f"{frame.f_code.co_name} ({Path(frame.f_code.co_filename).name})"
+                port = None
+                while frame is not None and port is None:
+                    if "iscc_search_tpu_torch" in frame.f_code.co_filename:
+                        port = f"{frame.f_code.co_name} ({Path(frame.f_code.co_filename).name}:{frame.f_lineno})"
+                    frame = frame.f_back
+                inner_hits[inner] += 1
+                port_hits[port or "(outside the port)"] += 1
+
+    thread = threading.Thread(target=sampler, daemon=True)
+    t0 = time.perf_counter()
+    thread.start()
+    try:
+        out = fn()
+    finally:
+        done.set()
+        thread.join(5)
+    wall = time.perf_counter() - t0
+    n = max(samples[0], 1)
+    log(f"{tag} {wall:.3f} s; {samples[0]} samples of every busy thread every {interval * 1e3:.0f} ms, the innermost "
+        "function of the port: " + ", ".join(f"{k} {100 * v / n:.1f}%" for k, v in port_hits.most_common(top)))
+    log(f"{tag} the innermost function of all: " + ", ".join(f"{k} {100 * v / n:.1f}%"
+                                                          for k, v in inner_hits.most_common(top)))
+    return out
+
+
 def composite_keys(assets, offsets, size=100):
     """(n, 16) uint8 simprint keys as the simprint engine stores them: the
     asset's 8-byte body, then the chunk's offset and size, each big-endian
@@ -2013,8 +2088,11 @@ def phase_server(rng, dev, tmp, truth, direct_rate, n_new=SERVER_NEW_ASSETS, n_s
     manager; 8 keep-alive clients; 1,000 assets added over HTTP and each
     found by a search; the error codes; ``serve()`` itself in a subprocess,
     stopped by SIGTERM; the memory:// and kv:// backends. Returns the path's
-    kernel launches (the HTTP requests' alone). On the card the factory and
-    ``serve()`` take their default device; elsewhere they are given ``dev``."""
+    kernel launches (the HTTP requests' alone) and what [scaleout] is held
+    to: the direct answers of the reopened index (every kind at limit 10 and
+    100 for the picked assets, and the 8 clients' ``both`` requests), and
+    the single-process figures. On the card the factory and ``serve()`` take
+    their default device; elsewhere they are given ``dev``."""
     base_dir, name, n = Path(tmp) / PRODUCT_BASE, PRODUCT_NAME, len(truth)
     t_phase = time.perf_counter()
 
@@ -2139,6 +2217,15 @@ def phase_server(rng, dev, tmp, truth, direct_rate, n_new=SERVER_NEW_ASSETS, n_s
         http_rate = len(work) / wall
         slog(f"[server] {card}: {clients} keep-alive clients x {per_client} 'both' limit-10 requests over HTTP: {wall:.3f} s, "
             f"{http_rate:.1f} query assets/s ([product], direct calls: {direct_rate:.1f}); answers equal the direct calls")
+        # The same load from client subprocesses: clients in this process share its GIL with the server.
+        load = client_load(served.base, f"/indexes/{name}/search?limit=10",
+                           [(i, product_query(i, truth[i], "both")) for i in work], clients)
+        check_load("[server] client subprocesses", load, {i: want_both[i] for i in work})
+        sub_rate = len(work) / load["wall"]
+        slog(f"[server] {card}: {clients} keep-alive clients in {load['procs']} client subprocesses x "
+             f"{load['conns']} connections, {per_client} 'both' limit-10 requests each: {load['wall']:.3f} s, "
+             f"{sub_rate:.1f} query assets/s (client threads in this process: {http_rate:.1f}); answers equal the "
+             f"direct calls")
 
         # Ingest over HTTP: each new asset then found by a search.
         _, new_truth = product_assets(rng, n_new, n_sp)
@@ -2257,8 +2344,13 @@ def phase_server(rng, dev, tmp, truth, direct_rate, n_new=SERVER_NEW_ASSETS, n_s
     text = serve_log.read_text()
     if code != 0 or "SIGTERM received" not in text or "closing index" not in text:
         raise AssertionError(f"[server] serve() after SIGTERM: exit {code}: {text[-2000:]}")
+    t0 = time.perf_counter()
     manager = get_index(f"tpu://{base_dir}", **on_card)
+    reopen_s = time.perf_counter() - t0
     try:
+        t0 = time.perf_counter()
+        direct(product_query(picks[0], truth[picks[0]], "both"), 10)
+        first_search_s = time.perf_counter() - t0
         if manager.get_index(name).assets != n + n_new + len(late):
             raise AssertionError(f"[server] reopened after serve(): {manager.get_index(name).assets} assets")
         for a in late:
@@ -2266,11 +2358,19 @@ def phase_server(rng, dev, tmp, truth, direct_rate, n_new=SERVER_NEW_ASSETS, n_s
             if manager.get_asset(name, a["iscc_id"]).units != a["units"] or \
                     a["iscc_id"] not in [m.iscc_id for m in res.global_matches]:
                 raise AssertionError(f"[server] reopened after serve(): {a['iscc_id']} is not there")
+        # The direct answers of the index as [scaleout] finds it (the adds
+        # above changed the simprints' document frequencies).
+        recorded = {"want": {(kind, limit, i): direct(product_query(i, truth[i], kind), limit)
+                             for kind, limit in cases for i in picks},
+                    "both": {i: direct(product_query(i, truth[i], "both"), 10) for i in work},
+                    "picks": picks, "work": work, "assets": n + n_new + len(late), "http_ms": http_ms,
+                    "sub_rate": sub_rate, "thread_rate": http_rate, "ingest_rate": len(entries) / ingest_s}
     finally:
         manager.close()
     slog(f"[server] serve() in a subprocess (ISCC_SEARCH_INDEX_URI=tpu://..., the pooled transport): /healthz after "
          f"{up_s:.1f} s, a first search ({first_s:.1f} s) equal to the direct call, {len(late)} assets added; "
-         f"SIGTERM: exit 0 after {stop_s:.1f} s, drained and flushed; reopened, they are there")
+         f"SIGTERM: exit 0 after {stop_s:.1f} s, drained and flushed; reopened here ({reopen_s:.3f} s, its first "
+         f"search {first_search_s:.3f} s), they are there")
 
     # The memory:// and kv:// backends through get_index, served and used through RemoteIndex.
     for uri in ("memory://", f"kv://{Path(tmp) / 'kv'}"):
@@ -2297,7 +2397,571 @@ def phase_server(rng, dev, tmp, truth, direct_rate, n_new=SERVER_NEW_ASSETS, n_s
             backend.close()
         slog(f"[server] {uri.split(':')[0]}:// through get_index: {len(items)} assets added, each found by its "
             f"ISCC-CODE at score 1.0 and read back over HTTP")
+    return launches, recorded
+
+
+# ------------------------------------------------- load from client processes
+
+
+CLIENT = r"""
+import http.client, json, sys, threading, time
+
+spec = json.load(open(sys.argv[1]))
+out = [None] * len(spec["work"])
+
+
+def run(c):
+    conn = None
+    for j in range(c, len(spec["work"]), spec["conns"]):
+        key, payload = spec["work"][j]
+        for attempt in range(3):  # a connection the server closed (a 503, a killed worker): open another
+            try:
+                if conn is None or spec["fresh"]:
+                    conn = http.client.HTTPConnection(spec["host"], spec["port"], timeout=300)
+                conn.request("POST", spec["route"], body=json.dumps(payload), headers={"Content-Type": "application/json"})
+                r = conn.getresponse()
+                body = r.read()
+                break
+            except (OSError, http.client.HTTPException):
+                conn = None
+                if attempt == 2:
+                    raise
+                time.sleep(0.05)
+        out[j] = [key, r.status, r.getheader("Retry-After"), json.loads(body) if body else None]
+        if r.getheader("Connection", "").lower() == "close":
+            conn = None
+
+
+t0 = time.time()
+threads = [threading.Thread(target=run, args=(c,)) for c in range(spec["conns"])]
+for t in threads:
+    t.start()
+for t in threads:
+    t.join()
+json.dump({"start": t0, "end": time.time(), "results": out}, open(sys.argv[2], "w"))
+"""
+
+
+def client_load(base, route, work, clients, procs=None, fresh=False):
+    """POST every ``(key, payload)`` of ``work`` to ``route`` from ``clients``
+    keep-alive connections spread over client subprocesses (at most 4, two
+    connections each, as ``benchmarks/latency_openloop.py`` spreads its
+    load; standard library only, so they start in a blink), all started
+    together. Returns the wall time from the first process's start to the
+    last one's end and every result ``[key, status, Retry-After, body]``."""
+    procs = procs or min(4, max(1, clients // 2))
+    conns = -(-clients // procs)
+    host, port = urllib.parse.urlparse(base).hostname, urllib.parse.urlparse(base).port
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_clients_") as tmp:
+        running = []
+        for p in range(procs):
+            spec, out = Path(tmp) / f"spec{p}.json", Path(tmp) / f"out{p}.json"
+            spec.write_text(json.dumps({"host": host, "port": port, "route": route, "conns": conns, "fresh": fresh,
+                                        "work": work[p::procs]}))
+            running.append((subprocess.Popen([sys.executable, "-c", CLIENT, str(spec), str(out)]), out))
+        for proc, _ in running:
+            if proc.wait(600) != 0:
+                raise AssertionError(f"a client subprocess failed (exit {proc.returncode})")
+        outs = [json.loads(out.read_text()) for _, out in running]
+    return {"wall": max(o["end"] for o in outs) - min(o["start"] for o in outs), "procs": procs, "conns": conns,
+            "results": [r for o in outs for r in o["results"]]}
+
+
+def check_load(label, load, want):
+    """Raise unless every result of ``client_load`` is a 200 with the body
+    ``want[key]``."""
+    bad = [r and r[:2] for r in load["results"] if r is None or (r[1], r[3]) != (200, want[r[0]])]
+    if bad or not load["results"]:
+        raise AssertionError(f"{label}: {len(bad)} answers differ from the direct calls, e.g. {bad[:3]}")
+
+
+# ------------------------------------------------------------- scale-out
+
+
+def worker_children(parent):
+    """Pids of the live ``iscc_search_tpu_torch.server.worker`` processes
+    whose parent is ``parent``, read from /proc."""
+    pids = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            ppid = int(Path(f"/proc/{entry}/stat").read_text().rsplit(")", 1)[1].split()[1])
+            cmdline = Path(f"/proc/{entry}/cmdline").read_bytes().split(b"\0")
+        except (OSError, IndexError, ValueError):
+            continue
+        if ppid == parent and b"iscc_search_tpu_torch.server.worker" in cmdline:
+            pids.append(int(entry))
+    return sorted(pids)
+
+
+def listeners(port):
+    """The sockets listening on TCP ``port`` (``SO_REUSEPORT``: one per worker),
+    read from /proc/net/tcp."""
+    count = 0
+    for table in ("/proc/net/tcp", "/proc/net/tcp6"):
+        with contextlib.suppress(OSError):
+            for line in Path(table).read_text().splitlines()[1:]:
+                fields = line.split()
+                count += fields[3] == "0A" and int(fields[1].rsplit(":", 1)[1], 16) == port
+    return count
+
+
+def compute_apps():
+    """Pids of the processes with a context on the card, as ``nvidia-smi``
+    lists them (None without nvidia-smi)."""
+    try:
+        out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"], capture_output=True,
+                             text=True, timeout=60).stdout
+    except (OSError, subprocess.TimeoutExpired):
+        return None
+    return [int(x) for x in out.split() if x.strip().isdigit()]
+
+
+def wait_for(what, cond, timeout=180, poll=0.1):
+    t0 = time.perf_counter()
+    while not cond():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not after {timeout} s")
+        time.sleep(poll)
+    return time.perf_counter() - t0
+
+
+def phase_scaleout(rng, dev, tmp, truth, server, n_new=SERVER_NEW_ASSETS, n_sp=PRODUCT_SIMPRINTS,
+                   clients=PRODUCT_CLIENTS):
+    """Scale-out serving on the card: ``serve_scaleout`` (the port's
+    ``serve --workers N``) on a thread of this process, which is the engine
+    and owns the product index on the card, and N ``SO_REUSEPORT`` worker
+    processes. Every search kind at limit 10 and 100 equal to [server]'s
+    recorded direct answers; 8 keep-alive clients in client subprocesses
+    beside [server]'s single process under the same load; 1,000 assets
+    added over HTTP, each then found; a 503 with Retry-After past an
+    engine's in-flight bound; a worker SIGKILLed and respawned while
+    requests keep succeeding. Returns the path's kernel launches."""
+    base_dir, name = Path(tmp) / PRODUCT_BASE, PRODUCT_NAME
+    on_card = "cuda" if dev.type == "cuda" else str(dev)
+    card = CARD.get("smi", str(dev))
+    t_phase = time.perf_counter()
+
+    def slog(msg):
+        log(f"{msg} [{time.perf_counter() - t_phase:.1f} s]")
+
+    cores = so._runnable_cores()
+    n_workers = max(2, min(4, cores - 1))
+    forced, previous_force = cores < n_workers + 1, os.environ.get("ISCC_SEARCH_SCALEOUT_FORCE")
+    if forced:
+        os.environ["ISCC_SEARCH_SCALEOUT_FORCE"] = "1"
+    slog(f"[scaleout] {cores} runnable cores (sched_getaffinity): {n_workers} workers"
+         + (", ISCC_SEARCH_SCALEOUT_FORCE=1 set (fewer than workers + 1 cores)" if forced else ""))
+    port = _free_port()
+    base = f"http://127.0.0.1:{port}"
+    opts = SearchOptions(index_uri=f"tpu://{base_dir}", host="127.0.0.1", port=port, workers=n_workers)
+    opened, real_get_index = [], options_mod.get_index
+
+    def recording_get_index(uri=None, device="cuda"):  # the engine's index, for the overload step
+        opened.append(real_get_index(uri, device=device))
+        return opened[-1]
+
+    options_mod.get_index = recording_get_index
+    stop, failed = threading.Event(), []
+
+    def engine():
+        try:
+            so.serve_scaleout(opts, stop=stop, device=on_card)
+        except BaseException as exc:  # noqa: BLE001 - raised in the phase below
+            failed.append(exc)
+
+    apps_before = compute_apps()
+    t0 = time.perf_counter()
+    thread = threading.Thread(target=engine, name="scaleout-engine", daemon=True)
+    thread.start()
+    extra, extra_ipc = None, None
+    try:
+        spawn_s = wait_for("[scaleout] worker processes", lambda: failed or len(worker_children(os.getpid())) >= n_workers)
+        listen_s = wait_for("[scaleout] workers listening", lambda: failed or listeners(port) >= n_workers)
+        if failed:
+            raise failed[0]
+        options_mod.get_index = real_get_index
+        workers = worker_children(os.getpid())
+        if len(workers) != n_workers or listeners(port) != n_workers:
+            raise AssertionError(f"[scaleout] {len(workers)} worker processes, {listeners(port)} listeners: "
+                                 f"expected {n_workers} (a fall-back to single-process serving is not scale-out)")
+        envs = [Path(f"/proc/{pid}/environ").read_bytes().split(b"\0") for pid in workers]
+        if any(b"CUDA_VISIBLE_DEVICES=" not in env for env in envs):
+            raise AssertionError("[scaleout] a worker's environment does not hide the card")
+        apps = compute_apps()
+        if apps is not None and (set(workers) & set(apps) or len(apps) != len(apps_before)):
+            raise AssertionError(f"[scaleout] the card's compute apps: {apps_before} before the workers, {apps} "
+                                 f"with them (worker pids {workers})")
+        libcuda = sum("libcuda.so" in Path(f"/proc/{pid}/maps").read_text() for pid in workers)
+        slog(f"[scaleout] serve_scaleout(workers={n_workers}, device={on_card!r}) on a thread of this process (the "
+             f"engine, pid {os.getpid()}): index opened and {n_workers} workers spawned after {spawn_s:.1f} s, all "
+             f"listening on port {port} (SO_REUSEPORT) {listen_s:.1f} s later; worker pids {workers}, each with "
+             f"CUDA_VISIBLE_DEVICES=''; nvidia-smi lists {len(apps) if apps is not None else 'no'} compute app(s) "
+             f"{apps} with the workers up, as before them ({apps_before}; pids as the card's host sees them), no "
+             f"worker pid among them; libcuda.so mapped in {libcuda} of {n_workers} workers")
+
+        # The engine's first search after its open, over HTTP (a worker, the
+        # engine's IPC thread), with every thread of this process sampled
+        # (PERF.md section 7: serve()'s first search).
+        picks, work, want = server["picks"], server["work"], server["want"]
+        engine_index = opened[0]
+        remote = RemoteIndex(base, name, chunk_size=SERVER_CHUNK)
+        with uncounted():
+            cold = sample_stacks("[scaleout] the engine's first search after its open ('both' limit 10 over HTTP):",
+                                 lambda: remote.request("POST", f"/indexes/{name}/search", params={"limit": 10},
+                                                        payload=product_query(picks[0], truth[picks[0]], "both")))
+            if cold.status_code != 200 or cold.json() != want["both", 10, picks[0]]:
+                raise AssertionError("[scaleout] the engine's first search differs from [server]'s direct answer")
+        kinds = ("units", "simprints", "both", "iscc_id", "iscc_code")
+        reset_launches()
+        scans, stop_spy = spy_routes()
+        http_ms = {}
+        for kind in kinds:
+            for limit in (10, 100):
+                times = []
+                for i in picks:
+                    q = product_query(i, truth[i], kind)
+                    t1 = time.perf_counter()
+                    if kind == "iscc_code":
+                        r = remote.request("GET", f"/indexes/{name}/search", params={**q, "limit": limit})
+                    else:
+                        r = remote.request("POST", f"/indexes/{name}/search", payload=q, params={"limit": limit})
+                    times.append(time.perf_counter() - t1)
+                    if r.status_code != 200 or r.json() != want[kind, limit, i]:
+                        raise AssertionError(f"[scaleout] {kind} asset {i} limit {limit}: HTTP {r.status_code} "
+                                             f"differs from the direct call: {r.text[:300]}")
+                http_ms[kind, limit] = statistics.median(times) * 1e3
+                with uncounted():  # the same requests direct on the engine's index, now
+                    times = []
+                    for i in picks:
+                        q = schema.IsccQuery(**product_query(i, truth[i], kind))
+                        t1 = time.perf_counter()
+                        engine_index.search_assets(name, q, limit)
+                        times.append(time.perf_counter() - t1)
+                direct_ms = statistics.median(times) * 1e3
+                slog(f"[scaleout] {card}: search {kind:9s} limit {limit:3d}: HTTP median {http_ms[kind, limit]:.3f} ms "
+                     f"of {len(picks)} through a worker and the engine's RPC, direct on the engine's index "
+                     f"{direct_ms:.3f} ms (HTTP and the hop: {http_ms[kind, limit] - direct_ms:+.3f} ms); [server], "
+                     f"one process: {server['http_ms'][kind, limit]:.3f} ms; bodies equal the direct calls")
+
+        load = client_load(base, f"/indexes/{name}/search?limit=10",
+                           [(i, product_query(i, truth[i], "both")) for i in work], clients)
+        check_load("[scaleout] client subprocesses", load, server["both"])
+        rate = len(work) / load["wall"]
+        slog(f"[scaleout] {card}: {clients} keep-alive clients in {load['procs']} client subprocesses x "
+             f"{load['conns']} connections, {len(work) // clients} 'both' limit-10 requests each: "
+             f"{load['wall']:.3f} s, {rate:.1f} query assets/s through {n_workers} workers ([server], one process, "
+             f"the same client subprocesses: {server['sub_rate']:.1f}; client threads in its process: "
+             f"{server['thread_rate']:.1f}); answers equal the direct calls")
+
+        # Overload: a second engine endpoint with an in-flight bound of 1 on
+        # the same index, and one worker process on it.
+        sock2 = str(Path(tmp) / "bounded.sock")
+        extra_ipc = so.EngineIPCServer(opened[0], sock2, max_inflight=1)
+        extra_ipc.start()
+        port2 = _free_port()
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES="", PYTHONPATH=str(Path(iscc_search_tpu_torch.__file__).parents[1]),
+                   ISCC_SCALEOUT_CONFIG=json.dumps({"opts": dataclasses.asdict(opts.override({"port": port2})),
+                                                    "socket_path": sock2}))
+        extra = subprocess.Popen([sys.executable, "-m", "iscc_search_tpu_torch.server.worker"], env=env)
+        wait_for("[scaleout] the bounded worker", lambda: listeners(port2) >= 1 or extra.poll() is not None)
+        statuses = []
+        for _ in range(5):
+            shed = client_load(f"http://127.0.0.1:{port2}", f"/indexes/{name}/search?limit=10",
+                               [(i, product_query(i, truth[i], "both")) for i in work[:clients]], clients, procs=1,
+                               fresh=True)
+            statuses = [(status, retry) for _, status, retry, _ in shed["results"]]
+            if any(s == 503 for s, _ in statuses):
+                break
+        ok = [(key, body) for key, status, _, body in shed["results"] if status == 200]
+        if not any(s == 503 and r is not None for s, r in statuses) or any(s not in (200, 503) for s, _ in statuses) \
+                or any(body != server["both"][key] for key, body in ok):
+            raise AssertionError(f"[scaleout] past the in-flight bound of 1: statuses {statuses}")
+        extra.terminate()
+        if extra.wait(60) != 0:
+            raise AssertionError(f"[scaleout] the bounded worker exited {extra.returncode} on SIGTERM")
+        extra = None
+        extra_ipc.close()
+        extra_ipc = None
+        slog(f"[scaleout] an engine endpoint with max_inflight=1 and one worker on it: {clients} concurrent 'both' "
+             f"searches answered {sorted(s for s, _ in statuses)} (503 with Retry-After "
+             f"{sorted({r for s, r in statuses if s == 503})}), every 200 equal to the direct call")
+
+        # A worker SIGKILLed: respawned while requests keep succeeding.
+        victim = workers[0]
+        t1 = time.perf_counter()
+        os.kill(victim, signal.SIGKILL)
+
+        def respawned():
+            pids = worker_children(os.getpid())
+            return len(pids) == n_workers and victim not in pids and listeners(port) == n_workers
+
+        during = 0
+        while not respawned():  # rounds of searches on fresh connections until the worker is back
+            if time.perf_counter() - t1 > 120:
+                raise AssertionError(f"[scaleout] worker {victim} not respawned after 120 s")
+            load = client_load(base, f"/indexes/{name}/search?limit=10",
+                               [(i, product_query(i, truth[i], "both")) for i in work[:8]], 4, procs=1, fresh=True)
+            check_load("[scaleout] requests while a worker respawns", load, server["both"])
+            during += len(load["results"])
+        respawn_s = time.perf_counter() - t1
+        if failed or not thread.is_alive():
+            raise AssertionError(f"[scaleout] the engine stopped: {failed}")
+        slog(f"[scaleout] worker {victim} SIGKILLed: {during} searches on fresh connections meanwhile, all 200 and "
+             f"equal to the direct calls; respawned and listening {respawn_s:.1f} s after the kill "
+             f"(pids {worker_children(os.getpid())})")
+
+        # Ingest over HTTP: each new asset then found by a units search.
+        first = server["assets"] + 10_000
+        _, new_truth = product_assets(rng, n_new, n_sp)
+        new_wire = [product_wire(first + j, t) for j, t in enumerate(new_truth)]
+        t1 = time.perf_counter()
+        results = remote.add_assets(name, [schema.IsccEntry(**a) for a in new_wire])
+        ingest_s = time.perf_counter() - t1
+        if [r.status.value for r in results] != ["created"] * len(new_wire):
+            raise AssertionError("[scaleout] assets added over HTTP are not all 'created'")
+        t1 = time.perf_counter()
+        missing = [j for j, a in enumerate(new_wire) if a["iscc_id"] not in [
+            m.iscc_id for m in remote.search_assets(name, schema.IsccQuery(units=a["units"]), limit=10).global_matches]]
+        find_s = time.perf_counter() - t1
+        if missing:
+            raise AssertionError(f"[scaleout] {len(missing)} assets added over HTTP are not found, e.g. {missing[:3]}")
+        stop_spy()
+        launches = check_path_launches("[scaleout]", dev, read_launches(), scans)
+        if dev.type == "cuda" and not (launches["gather_rescore"] > 0 and sum(
+                launches[k] for k in PATH_KERNELS if k != "gather_rescore") > 0):
+            raise AssertionError(f"[scaleout] the path launched {launches}")
+        batch = [schema.IsccEntry(**a) for a in new_wire[:SERVER_CHUNK]]
+        t1 = time.perf_counter()
+        frame = pickle.dumps(("call", "add_assets", (name, batch)), protocol=5)
+        pickle_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        pickle.loads(frame)
+        unpickle_s = time.perf_counter() - t1
+        slog(f"[scaleout] {card}: POST /indexes/{name}/assets of {len(new_wire)} new assets in RemoteIndex batches of "
+             f"{SERVER_CHUNK}: {ingest_s:.3f} s, {len(new_wire) / ingest_s:.1f} assets/s through the workers "
+             f"([server], one process: {server['ingest_rate']:.1f}); a batch's RPC frame {len(frame)} bytes, pickled "
+             f"in {pickle_s * 1e3:.1f} ms and unpickled in {unpickle_s * 1e3:.1f} ms (timed here); each then found by "
+             f"a units search (one client, {len(new_wire) / find_s:.1f} searches/s)")
+        slog(f"[scaleout] kernel launches of the path (its HTTP requests through the workers): {launches}")
+        remote.close()
+
+    finally:
+        options_mod.get_index = real_get_index
+        if extra is not None:
+            extra.terminate()
+            extra.wait(60)
+        if extra_ipc is not None:
+            extra_ipc.close()
+        stop.set()
+        thread.join(120)
+        if forced and previous_force is None:
+            os.environ.pop("ISCC_SEARCH_SCALEOUT_FORCE", None)
+    if thread.is_alive() or failed or worker_children(os.getpid()):
+        raise AssertionError(f"[scaleout] after the stop: engine alive {thread.is_alive()}, {failed}, workers "
+                             f"{worker_children(os.getpid())}")
+    slog(f"[scaleout] stopped by its event: workers gone, the index flushed and closed (phase {time.perf_counter() - t0:.1f} s)")
     return launches
+
+
+# ------------------------------------------------------------------- the CLI
+
+
+CLI_ASSETS = 1000  # product-style assets the [cli] phase writes as .iscc.json files and NDJSON
+_LOG_LINE = re.compile(r"^\d{4}-\d\d-\d\d \d\d:\d\d:\d\d\.\d{3} \| ")
+_TIMER = re.compile(r"iscc_search_tpu_torch\.timer:timer:\d+ - (.+): ([0-9.]+)s$")
+
+
+def cli_document(i, t):
+    """Product asset ``i`` as an .iscc.json document: its ISCC-CODE, units,
+    metadata and the chunk simprints as a ``features`` entry."""
+    w = product_wire(i, t)
+    sp = w["simprints"][PRODUCT_SP]
+    return {"iscc_id": w["iscc_id"], "iscc_code": ic.gen_iscc_code_v0([w["units"][k] for k in (0, 2, 3, 4)])["iscc"],
+            "units": w["units"], "metadata": w["metadata"],
+            "features": [{"maintype": "content", "subtype": "text", "version": 0,
+                          "simprints": [v["simprint"] for v in sp], "offsets": [v["offset"] for v in sp],
+                          "sizes": [v["size"] for v in sp]}]}
+
+
+def run_cli(args, env, device_args, timeout=600):
+    """``python -m iscc_search_tpu_torch.cli`` in a fresh process (``-X
+    importtime``). Returns (exit code, printed lines without the log lines,
+    log lines, split): the wall time, the import of the CLI and of torch
+    (cumulative, from ``-X importtime``) and the CLI's timers (``open
+    index``, the call)."""
+    cmd = [sys.executable, "-X", "importtime", "-m", "iscc_search_tpu_torch.cli", *device_args, *args]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, env=env, capture_output=True, text=True, timeout=timeout)
+    split = {"wall": time.perf_counter() - t0}
+    for line in proc.stderr.splitlines():
+        parts = line.split("|")
+        if line.startswith("import time:") and len(parts) == 3 and parts[2].strip() in ("iscc_search_tpu_torch.cli",
+                                                                                          "torch"):
+            split[f"import {parts[2].strip()}"] = int(parts[1]) / 1e6
+    lines = proc.stdout.splitlines()
+    logs = [line for line in lines if _LOG_LINE.match(line)]
+    for line in logs:
+        m = _TIMER.search(line)
+        if m:
+            split[m.group(1)] = float(m.group(2))
+    if proc.returncode != 0:
+        errors = [line for line in proc.stderr.splitlines() if not line.startswith("import time:")]
+        log(f"[cli] {' '.join(args)}: exit {proc.returncode}: " + "\n".join(lines[-20:] + errors[-20:]))
+    return proc.returncode, [line for line in lines if not _LOG_LINE.match(line)], logs, split
+
+
+def _split_text(split):
+    order = ("import iscc_search_tpu_torch.cli", "import torch", "open index")
+    parts = [f"{k} {split[k]:.3f}" for k in order if k in split]
+    parts += [f"{k} {v:.3f}" for k, v in split.items() if k not in order and k != "wall"]
+    return f"wall {split['wall']:.3f} s: " + ", ".join(parts)
+
+
+def phase_cli(rng, dev, tmp, product_truth, n_assets=CLI_ASSETS, n_sp=PRODUCT_SIMPRINTS):
+    """The CLI on the card in fresh processes: ``python -m
+    iscc_search_tpu_torch.cli`` on its default device with ``HOME`` in a
+    temporary directory: ``index add``, ``add`` of an .iscc.json file, a
+    directory and an NDJSON file (``n_assets`` product-style assets), ``index
+    list``, ``get``, ``search --json`` by code and by ISCC-ID, ``index rebuild
+    --all``, ``serve --workers 2`` (one search, then SIGTERM), ``index
+    remove``; then a cold ``search`` of the product index. Each process's
+    time split (the CLI's import, torch's import, opening the index, the
+    call). Afterwards the index opened here holds every asset, and every
+    ``get`` and ``search --json`` output equals the direct call's."""
+    root = Path(tmp) / "cli"
+    home, data, files = root / "home", root / "data", root / "files"
+    for d in (home, files / "dir"):
+        d.mkdir(parents=True)
+    on_card = {} if dev.type == "cuda" else {"device": dev}
+    device_args = [] if dev.type == "cuda" else ["--device", str(dev)]
+    card = CARD.get("smi", str(dev))
+    t_phase = time.perf_counter()
+
+    def slog(msg):
+        log(f"{msg} [{time.perf_counter() - t_phase:.1f} s]")
+
+    first = 5_000_000  # ISCC-ID serials of their own
+    docs = [cli_document(first + j, t) for j, t in enumerate(product_assets(rng, n_assets, n_sp)[1])]
+    (files / "one.iscc.json").write_text(json.dumps(docs[0]))
+    half = n_assets // 2
+    for j in range(1, half):
+        (files / "dir" / f"a{j:04d}.iscc.json").write_text(json.dumps(docs[j]))
+    (files / "bulk.ndjson").write_text("".join(json.dumps(d) + "\n" for d in docs[half:]))
+    env = dict(os.environ, HOME=str(home), XDG_DATA_HOME=str(home / "share"),
+               PYTHONPATH=str(Path(iscc_search_tpu_torch.__file__).resolve().parents[1]))
+    slog(f"[cli] {n_assets} product-style assets written: one .iscc.json file, {half - 1} in a directory, "
+         f"{n_assets - half} in one NDJSON file; HOME={home}")
+
+    outputs, splits = {}, []
+
+    def cli(label, *args, want_code=0):
+        code, lines, logs, split = run_cli(list(args), env, device_args)
+        if code != want_code:
+            raise AssertionError(f"[cli] {label}: exit {code}, expected {want_code}")
+        splits.append((label, split))
+        slog(f"[cli] {card}: {label}: exit {code}; {_split_text(split)}")
+        outputs[label] = lines
+        return lines, logs
+
+    cli("index add", "index", "add", "cli", "--path", str(data))
+    counts = [cli(f"add {src}", "add", str(files / src))[0][-1] for src in ("one.iscc.json", "dir", "bulk.ndjson")]
+    if counts != [f"Added {n} created, 0 updated, 0 skipped" for n in (1, half - 1, n_assets - half)]:
+        raise AssertionError(f"[cli] add: {counts}")
+    rows = [line.split("\t") for line in cli("index list", "index", "list")[0] if "\t" in line]
+    if rows != [["", "Name", "Type", "Location"], ["*", "cli", "local", str(data.resolve())]]:
+        raise AssertionError(f"[cli] index list: {rows}")
+    picked = docs[7]
+    cli("get", "get", picked["iscc_id"])
+    cli("search by code", "search", docs[10]["iscc_code"], "--json")
+    cli("search by ISCC-ID", "search", docs[11]["iscc_id"], "--json")
+    rebuilt = cli("index rebuild --all", "index", "rebuild", "--all")[0]
+
+    # serve --workers 2: one search, then SIGTERM, exit 0.
+    port = _free_port()
+    serve_cmd = [sys.executable, "-m", "iscc_search_tpu_torch.cli", *device_args, "serve", "--workers", "2", "--host",
+                 "127.0.0.1", "--port", str(port), "--index-uri", f"tpu://{data}"]
+    serve_log = root / "serve.log"
+    query = {"units": docs[3]["units"]}
+    t0 = time.perf_counter()
+    with open(serve_log, "wb") as out:
+        proc = subprocess.Popen(serve_cmd, env={**env, "ISCC_SEARCH_SCALEOUT_FORCE": "1"}, stdout=out,
+                                stderr=subprocess.STDOUT)
+    try:
+        up_s = wait_for("[cli] serve --workers 2 /healthz", lambda: proc.poll() is not None or _healthy(port))
+        if proc.poll() is not None:
+            raise AssertionError(f"[cli] serve --workers 2 exited {proc.returncode}: {serve_log.read_text()[-2000:]}")
+        workers = worker_children(proc.pid)
+        t1 = time.perf_counter()
+        status, served, _ = http_json(f"http://127.0.0.1:{port}", "POST", "/indexes/cli/search?limit=10", query)
+        search_s = time.perf_counter() - t1
+        t1 = time.perf_counter()
+        proc.send_signal(signal.SIGTERM)
+        code = proc.wait(120)
+        stop_s = time.perf_counter() - t1
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if code != 0 or status != 200 or len(workers) != 2:
+        raise AssertionError(f"[cli] serve --workers 2: exit {code}, search {status}, workers {workers}: "
+                             f"{serve_log.read_text()[-2000:]}")
+    slog(f"[cli] {card}: serve --workers 2: /healthz after {up_s:.1f} s (workers {workers}), a first search "
+         f"{search_s:.3f} s (HTTP 200), SIGTERM: exit 0 after {stop_s:.1f} s")
+    cli("index remove", "index", "remove", "cli")
+
+    # The index as the CLI left it, opened here: every asset, every answer.
+    manager = get_index(f"tpu://{data}", **on_card)
+    try:
+        if manager.get_index("cli").assets != n_assets:
+            raise AssertionError(f"[cli] the index holds {manager.get_index('cli').assets} assets, not {n_assets}")
+        missing = [d["iscc_id"] for d in docs if manager.get_asset("cli", d["iscc_id"]).units != d["units"]]
+        if missing:
+            raise AssertionError(f"[cli] assets added by the CLI are not there: {missing[:3]}")
+
+        def parsed(label):
+            text = "\n".join(outputs[label])
+            return json.loads(text[text.index("{"):])
+
+        direct = {
+            "get": manager.get_asset("cli", picked["iscc_id"]).model_dump(mode="json", exclude_none=True),
+            "search by code": manager.search_assets("cli", schema.IsccQuery(iscc_code=docs[10]["iscc_code"]),
+                                                    10).model_dump(mode="json", exclude_none=True),
+            "search by ISCC-ID": manager.search_assets("cli", schema.IsccQuery(iscc_id=docs[11]["iscc_id"]),
+                                                       10).model_dump(mode="json", exclude_none=True),
+        }
+        for label, want in direct.items():
+            if parsed(label) != want:
+                raise AssertionError(f"[cli] {label}: the CLI's output differs from the direct call")
+        if served != manager.search_assets("cli", schema.IsccQuery(**query), 10).model_dump(mode="json",
+                                                                                              exclude_none=True):
+            raise AssertionError("[cli] serve --workers 2: the search differs from the direct call")
+        top = [m["iscc_id"] for m in direct["search by ISCC-ID"]["global_matches"]]
+        if top[:1] != [docs[10]["iscc_id"]]:  # asset 11 is a near copy of asset 10 (the asset itself is left out)
+            raise AssertionError(f"[cli] search by ISCC-ID: top matches {top[:2]}")
+    finally:
+        manager.close()
+    slog(f"[cli] opened here afterwards: {n_assets} assets, each with its units; get, both searches --json and the "
+         f"served search equal the direct calls; {rebuilt}")
+
+    # A cold CLI process on the product index (PERF.md section 7: serve()'s first search).
+    cli("index add product", "index", "add", "product", "--path", str(Path(tmp) / PRODUCT_BASE))
+    code = product_query(0, product_truth[0], "iscc_code")["iscc_code"]
+    lines, logs = cli("search the product index", "search", "--index", "product", code, "--json")
+    text = "\n".join(lines)
+    top = [m["iscc_id"] for m in json.loads(text[text.index("{"):])["global_matches"][:2]]
+    if product_iscc_id(0) not in top:
+        raise AssertionError(f"[cli] search the product index: top matches {top}")
+    slog("[cli] the cold search of the product index (asset 0 found), its log:\n" + "\n".join(logs))
+    return splits
+
+
+def _healthy(port):
+    try:
+        return http_json(f"http://127.0.0.1:{port}", "GET", "/healthz")[:2] == (200, {"status": "ok"})
+    except OSError:
+        return False
 
 
 def phase3_split(dev, part, flat, kk, out_k):
@@ -2704,9 +3368,15 @@ def main():
         by_path["product"], product_stats, truth, direct_rate = phase_product(rng, dev, tmp)
         log(f"[product] phase time {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
-        by_path["server"] = phase_server(rng, dev, tmp, truth, direct_rate)
+        by_path["server"], recorded = phase_server(rng, dev, tmp, truth, direct_rate)
         log(f"[server] phase time {time.perf_counter() - t0:.1f} s")
-        del truth
+        t0 = time.perf_counter()
+        by_path["scaleout"] = phase_scaleout(rng, dev, tmp, truth, recorded)
+        log(f"[scaleout] phase time {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        phase_cli(rng, dev, tmp, truth)
+        log(f"[cli] phase time {time.perf_counter() - t0:.1f} s")
+        del truth, recorded
     exp_launches, exp_stats = phase_experiments(dev)
     launches.update(exp_launches)
     stats.update(exp_stats)
@@ -2731,8 +3401,9 @@ def main():
         entry.update({"launches": launches[name], **stats[name]})
         if name in PATH_KERNELS:
             # The search paths' launches: config 3 (phases 4-6), the simprint
-            # engine at config 4 and the asset-level entry point; and the
-            # kernel at the simprint and product paths' shapes.
+            # engine at config 4, the asset-level entry point, the REST server
+            # and scale-out; and the kernel at the simprint and product paths'
+            # shapes.
             entry["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
             entry["launches"] = sum(entry["launches_by_path"].values())
             entry["at_simprint_shapes"] = path_stats[name]

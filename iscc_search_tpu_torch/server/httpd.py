@@ -6,10 +6,12 @@ Threaded WSGI HTTP server with lifespan management (copy of
 the device the caller names), serves the REST app over the pooled keep-alive
 transport (``http_backend="pooled"``) or the stdlib thread-per-request server
 (``"wsgiref"``), and on SIGTERM drains the server and flushes and closes the
-index, as the JAX package's does. Three deployments of the JAX package are
-not ported and raise ``NotImplementedError`` naming their ROADMAP.md item:
-multi-host serving (``distributed``), scale-out workers (``workers > 1``) and
-aggregator mode (``aggregator_network``).
+index, as the JAX package's does. ``workers > 1`` runs the scale-out
+topology (``server/scaleout.py``: this process is the engine and owns the
+index on the device, N ``SO_REUSEPORT`` HTTP worker processes reach it over
+a unix socket). Two deployments of the JAX package are not ported and raise
+``NotImplementedError`` naming their ROADMAP.md item: multi-host serving
+(``distributed``) and aggregator mode (``aggregator_network``).
 """
 
 from __future__ import annotations
@@ -58,9 +60,13 @@ def serve(opts=None, device="cuda"):
             "multi-host serving (ISCC_SEARCH_DISTRIBUTED) is not ported: ROADMAP.md queue 1 item 4"
         )
     if opts.workers and opts.workers > 1:
-        raise NotImplementedError(
-            "scale-out serving (ISCC_SEARCH_WORKERS > 1) is not ported: ROADMAP.md queue 1 item 3, scale-out"
-        )
+        # Multi-process scale-out: SO_REUSEPORT HTTP workers + this process
+        # as the engine (single writer). Aggregator mode stays single-process
+        # (one poller); the CLI rejects that combination.
+        from iscc_search_tpu_torch.server.scaleout import serve_scaleout
+
+        serve_scaleout(opts, device=device)
+        return
     if opts.aggregator_mode:
         raise NotImplementedError(
             "aggregator mode (ISCC_SEARCH_AGGREGATOR_NETWORK) is not ported: ROADMAP.md queue 1 item 3, aggregator"

@@ -85,13 +85,34 @@ COPIES = {
     ),
     # The component schemas come from a data file, not from pydantic.
     "server.openapi": (("build_openapi",), (), ()),
-    # The device argument; multi-host serving, scale-out and aggregator mode raise.
+    # The device argument (scale-out is dispatched with it); multi-host
+    # serving and aggregator mode raise.
     "server.httpd": (
         ("serve",),
         ("AggregatorRunner.__init__", "AggregatorRunner.start", "AggregatorRunner.stop", "_multihost_index_name",
          "_serve_follower"),
         (),
     ),
+    # The device argument; the workers' options as dataclasses.asdict (a
+    # dataclass, not pydantic) and CUDA_VISIBLE_DEVICES="" in their
+    # environment in place of JAX_PLATFORMS="cpu".
+    "server.scaleout": (("serve_scaleout",), (), ()),
+    "server.worker": ((), (), ()),
+    # The models are the port's wire-type dataclasses (their checks in
+    # __post_init__, the union resolved by _index_config); discover() reads
+    # the port's data directory (no platformdirs).
+    "config": (
+        ("ConfigManager.discover",),
+        (),
+        tuple(f"{cls}.{fn}" for cls in ("LocalIndexConfig", "RemoteIndexConfig", "Config")
+              for fn in ("__post_init__", "__eq__", "__repr__")) + ("_index_config",),
+    ),
+    # The device argument; the plain output in place of rich.
+    "cli.common": (("get_active_index", "_local_manager"), (), ("print_json", "print_table")),
+    # The click commands become argparse subcommands.
+    "cli.add": ((), (), ("register", "add_command")),
+    "cli.search": ((), (), ("register", "search_command")),
+    "cli.hub": ((), (), ("register", "hub_command")),
     # The shared library is built with g++ into build/, never with make
     # inside the package.
     "store.kv": (("_load_library",), ("_lib_is_fresh", "_build_library"), ("build_key", "_build_library")),

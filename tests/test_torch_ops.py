@@ -656,6 +656,19 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "iscc_search_tpu_torch.server.openapi",
         "iscc_search_tpu_torch.server.pooled",
         "iscc_search_tpu_torch.server.wsgi",
+        "iscc_search_tpu_torch.server.scaleout",
+        "iscc_search_tpu_torch.server.worker",
+        "iscc_search_tpu_torch.config",
+        "iscc_search_tpu_torch.cli",
+        "iscc_search_tpu_torch.cli.__main__",
+        "iscc_search_tpu_torch.cli.add",
+        "iscc_search_tpu_torch.cli.common",
+        "iscc_search_tpu_torch.cli.datasets",
+        "iscc_search_tpu_torch.cli.get",
+        "iscc_search_tpu_torch.cli.hub",
+        "iscc_search_tpu_torch.cli.index",
+        "iscc_search_tpu_torch.cli.search",
+        "iscc_search_tpu_torch.cli.serve",
     } <= set(names)
 
 
@@ -754,7 +767,14 @@ def test_chip_smoke_simprint_and_product_phases_run_on_the_cpu(tmp_path, request
     assert all(s["max_abs_err"] == 0.0 for entries in stats.values() for s in entries)
     # [server]: the product index behind the REST app over real sockets and serve() in a subprocess.
     assert [p.name for p in (tmp_path / mod.PRODUCT_BASE).iterdir()] == [mod.PRODUCT_NAME]
-    launches = mod.phase_server(rng, dev, tmp_path, truth, rate, n_new=20, n_sp=12, n_kv=10, reps=1, clients=2,
-                                per_client=1)
+    launches, recorded = mod.phase_server(rng, dev, tmp_path, truth, rate, n_new=20, n_sp=12, n_kv=10, reps=1,
+                                          clients=2, per_client=1)
     assert set(launches) == set(mod.PATH_KERNELS)
     assert (mod.SERVER_NEW_ASSETS, mod.SERVER_CHUNK, mod.SERVER_KV_ASSETS) == (1000, 100, 100)
+    assert len(recorded["want"]) == 10 and recorded["sub_rate"] > 0 and recorded["assets"] == 60 + 20 + 20 + 10  # + a direct batch of 20, + 10 by serve()
+    # [scaleout]: serve_scaleout on a thread with two real workers; [cli]: the CLI in fresh processes.
+    launches = mod.phase_scaleout(rng, dev, tmp_path, truth, recorded, n_new=20, n_sp=12, clients=2)
+    assert set(launches) == set(mod.PATH_KERNELS)
+    splits = dict(mod.phase_cli(rng, dev, tmp_path, truth, n_assets=12, n_sp=12))
+    assert {"open index", "search_assets", "import iscc_search_tpu_torch.cli", "import torch"} <= set(
+        splits["search by code"]) and mod.CLI_ASSETS == 1000

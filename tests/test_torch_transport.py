@@ -12,8 +12,9 @@
   does.
 - ``serve()`` in a subprocess on ``memory://`` and ``kv://`` answers, then
   drains and exits 0 on SIGTERM; ``tpu://`` with ``device="cpu"`` too.
-  Multi-host serving, scale-out workers and aggregator mode raise
-  ``NotImplementedError``; no card with the default device raises.
+  Multi-host serving and aggregator mode raise ``NotImplementedError``
+  (scale-out workers: ``tests/test_torch_scaleout.py``); no card with the
+  default device raises.
 """
 
 import json
@@ -50,11 +51,12 @@ REPO = Path(__file__).resolve().parents[1]
 
 def _port_cases(name, tests, fixtures=()):
     """The named tests and fixtures of ``tests/<name>.py`` compiled with
-    ``iscc_search_tpu.`` read as ``iscc_search_tpu_torch.``: the JAX
-    package's test bodies against the port. Tests are renamed
-    ``test_<name>__<test>``."""
+    ``iscc_search_tpu.`` (and the logger name ``"iscc_search_tpu"``) read
+    as the port's: the JAX package's test bodies against the port. Tests are
+    renamed ``test_<name>__<test>``."""
     path = REPO / "tests" / f"{name}.py"
-    source = path.read_text().replace("iscc_search_tpu.", "iscc_search_tpu_torch.")
+    source = (path.read_text().replace("iscc_search_tpu.", "iscc_search_tpu_torch.")
+              .replace('"iscc_search_tpu"', '"iscc_search_tpu_torch"'))
     namespace = {"__name__": f"{__name__}.{name}", "__file__": str(path)}
     exec(compile(source, str(path), "exec"), namespace)
     found = {f"{name[5:]}__{t[5:]}": namespace[t] for t in tests}
@@ -76,7 +78,7 @@ POOLED = [
     "test_repeated_headers_comma_joined", "test_idle_new_connection_does_not_pin_workers",
     "test_expect_100_continue_interim_response", "test_header_line_without_colon_is_skipped",
 ]
-OVERLOAD = [  # the scale-out cases stay with the JAX package (scale-out is not ported)
+OVERLOAD = [  # its scale-out cases run in tests/test_torch_scaleout.py
     "test_queue_deadline_sheds_stale_requests", "test_admission_bound_sheds_burst",
     "test_overload_latency_stays_bounded", "test_zero_disables_shedding", "test_wsgi_maps_overloaded_to_503",
     "test_admission_probe_sheds_before_parse",
@@ -405,7 +407,7 @@ def test_serve_answers_and_drains_on_sigterm(scheme, tmp_path):
 
 @pytest.mark.parametrize("update,item", [
     ({"distributed": True}, "queue 1 item 4"),
-    ({"workers": 2}, "scale-out"),
+    ({"distributed": True, "workers": 2}, "queue 1 item 4"),
     ({"aggregator_network": "testnet"}, "aggregator"),
 ])
 def test_serve_refuses_what_is_not_ported(update, item):
