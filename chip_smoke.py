@@ -79,6 +79,22 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    warm-search seconds and the directory's bytes are printed. Then the
    config-3 index of phases 4-6 is saved, closed and opened anew, and must
    answer as before;
+   mesh    — config 3's rows (the slice's index) row-sharded over 4 shards
+   of the card (``make_mesh(devices=[dev] * 4)``, a power of two per
+   shard): ``DeviceNphdIndex(mesh=...)`` at Q=512, 32 and 1 (k=10) and at
+   limit 100 (Q=32) against the single-device index (score multisets),
+   brute force (every returned row's score, the sampled top-10s, no removed
+   key) and with each scan on the kernel ``auto_phase1`` names; the
+   int8-twin route per shard (``sharded_pallas_topk``: TPU kernel 4 on a
+   search path) ``torch.equal`` to the sharded scan, and kernel 4 to its
+   plain version at each partition's shard; warm ms beside the single
+   device's. Beside it two clusters in subprocesses (``--mesh-worker``): 2
+   processes x 2 shards joined by gloo and one process of 4 shards in a
+   one-rank NCCL group, each uploading only its own row block, running
+   ``hier_pm1_topk`` over the 256-bit partition and the engine's searches
+   in lockstep: answers equal one process's (the gloo pair's
+   ``hier_pm1_topk`` bit for bit), and ``TpuIndex`` refuses a mesh across
+   processes. Its launches are ``launches_by_path["mesh"]``;
 8. experiments (run last) — the phase-1 experiment entry points of
    ``iscc_search_tpu_torch.experiments`` (TPU kernels 8-11): each kernel
    against its plain version (``torch.equal``) on edge cases (Q=77,
@@ -196,12 +212,13 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    by a record's units at limit 10 return it at score 1.0 (their launches:
    ``launches_by_path["aggregator"]``).
 
-Phases 9-12 and 14 run after phase 7 and set the launch counts to 0 just
+``[mesh]`` and phases 9-12 and 14 run after phase 7 and set the launch counts to 0 just
 before they drive their path and read them just after (phase 10's kernel-
 against-plain launches are not counted; phases 11 and 12 count their HTTP
 requests alone, phase 14 its searches of the aggregator's index); the JSON
-summary's ``launches`` of the path kernels is the sum over the six search
-paths, ``launches_by_path`` splits it, and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
+summary's ``launches`` of the path kernels is the sum over the seven search
+paths, ``launches_by_path`` splits it (for ``blockmax_mma_unpacked``: the
+twin phase and the mesh path), and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
 10's kernel-against-plain numbers, one entry per shape (for
 ``gather_rescore`` the routed form's, with both forms' times).
 ``gather_rescore`` also carries ``by_form``, every [gather] point, and
@@ -224,7 +241,7 @@ The line before the last is the kernels' JSON summary; the last line is
 
 ``--profile`` adds, after phase 6, the host split and the device time by
 kernel of warm searches under ``"popc"`` and ``"auto"`` at Q=512 and under
-``"auto"`` at Q=32 and Q=1.
+``"auto"`` at Q=32 and Q=1, and for the mesh index at Q=512 and 32.
 
 Usage: ``python3 chip_smoke.py [--seed N] [--profile]``
 """
@@ -277,7 +294,11 @@ from iscc_search_tpu_torch.ops import hopper_scan as hs
 from iscc_search_tpu_torch.ops import wgmma_layout
 from iscc_search_tpu_torch.ops.nphd import hamming_scores, nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
-from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix, topk_blocks_hier
+from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, prepare_queries, query_prefix, topk_blocks_hier
+from iscc_search_tpu_torch.parallel import hier_pm1_topk, make_mesh, make_mesh_2d
+from iscc_search_tpu_torch.parallel.distributed import init_distributed
+from iscc_search_tpu_torch.parallel.pallas_sharded import shard_unpacked_db, sharded_pallas_topk
+from iscc_search_tpu_torch.parallel.pm1_sharded import shard_pm1_database
 from iscc_search_tpu_torch import options as options_mod
 from iscc_search_tpu_torch.options import SearchOptions, get_index
 from iscc_search_tpu_torch.remote import RemoteIndex
@@ -301,6 +322,14 @@ AUTO_SLACK = 1.5  # 'auto' may take the slower phase-1 kernel by at most this fa
 N_PERSIST = 1_048_576  # BASELINE config 2: 1M x 256-bit units with a persisted snapshot
 PERSIST_SHARD_BYTES = 8 * 1024 * 1024  # seals ~186,000 rows per segment: five sealed segments at config 2
 N_ORACLE = 16
+# [mesh]: config 3's codes row-sharded over several shards of the one card.
+MESH_SHARDS = 4  # shards of the one-process mesh
+MESH_CHIPS = 2  # shards per process of the two-process 2-D mesh (2 x 2)
+MESH_QS = (512, 32, 1)  # batches of the sharded searches at k=10 (the second also at MESH_LIMIT)
+MESH_LIMIT = 100
+MESH_PM1_CHUNK = 32768  # rows per step of the plain pm1 scan in hier_pm1_topk
+MESH_TIMEOUT_S = 300  # a cluster process that runs longer fails the phase
+MESH_ARRAYS = ("keys", "codes", "nlanes", "valid", "q_codes", "q_lanes", "pm1_packed", "pm1_valid")
 SCORE_ATOL = 1e-6  # 0.5 + dot*q_scale vs 1 - ham/min_bits: a few f32 ulps near 1.0
 
 KERNELS = {
@@ -1131,6 +1160,286 @@ def phase_persist(rng, dev, idx3, queries3, tmp):
     log(f"[persist] config 3 ({rows3} rows, {live3} live): save(wait=True) {save_s:.3f} s, {nbytes} bytes; "
         f"reload {load_s:.3f} s; the reloaded index returns the same keys and scores")
     again.close()
+
+
+# ------------------------------------------------------- [mesh]: sharded search
+
+
+def row_scores(q_codes, q_lanes, codes, lanes, rows):
+    """(Q, m) float64 NPHD of each query against its rows ``rows`` (Q, m)
+    of ``codes`` / ``lanes`` (numpy, lane-exact prefixes); NaN where the row
+    is -1."""
+    r = np.maximum(rows, 0)
+    x = (np.asarray(q_codes, np.uint32)[:, None, :] ^ np.asarray(codes, np.uint32)[r]).astype(">u4")
+    pops = np.unpackbits(x.view(np.uint8), axis=-1).reshape(*r.shape, -1, 32).sum(-1)  # (Q, m, lanes)
+    ml = np.minimum(np.asarray(q_lanes)[:, None], np.asarray(lanes)[r])
+    ham = np.where(np.arange(pops.shape[-1]) < ml[..., None], pops, 0).sum(-1)
+    return np.where(rows >= 0, 1.0 - ham / np.maximum(ml * 32, 1), np.nan)
+
+
+def padded_results(res, count):
+    """Engine results as (Q, count) int64 keys (-1 padding) and float32 scores (NaN padding)."""
+    keys = np.full((len(res), count), -1, np.int64)
+    scores = np.full((len(res), count), np.nan, np.float32)
+    for qi, (k, sc) in enumerate(res):
+        keys[qi, : len(sc)] = k.view(">u8").ravel()
+        scores[qi, : len(sc)] = sc
+    return keys, scores
+
+
+def check_sharded(label, keys, scores, want_scores, q_codes, q_lanes, host):
+    """Raise unless each query's scores equal ``want_scores`` exactly (the
+    same multiset, the engines sort them alike), no key repeats or is
+    removed, and every returned key's row carries its brute-force score."""
+    if not np.array_equal(scores, want_scores, equal_nan=True):
+        raise AssertionError(f"{label}: score multisets differ from the single-device index's")
+    live = keys >= 0
+    if not host["valid"][keys[live]].all():
+        raise AssertionError(f"{label}: a removed key came back")
+    if any(len(set(row[row >= 0])) != int((row >= 0).sum()) for row in keys):
+        raise AssertionError(f"{label}: a key repeats within one query's results")
+    direct = row_scores(q_codes, q_lanes, host["codes"], host["nlanes"], keys)  # key == row
+    if not np.allclose(direct[live], scores[live], rtol=0, atol=SCORE_ATOL):
+        raise AssertionError(f"{label}: returned rows do not carry their brute-force scores")
+
+
+def mesh_worker(data_dir, rank, world, port, device, chips):
+    """One process of a [mesh] cluster (``--mesh-worker``): joins the
+    ``torch.distributed`` group (the backend that ``init_distributed``
+    chooses), builds the 2-D mesh of ``world`` x ``chips`` shards, checks
+    that ``TpuIndex`` refuses a mesh across processes, then runs
+    ``hier_pm1_topk`` over the 256-bit partition and the engine's searches
+    in lockstep with the other processes, each uploading only its own row
+    block. Writes ``rank<r>.npz`` and ``rank<r>.json`` into ``data_dir``."""
+    import torch.distributed as dist
+
+    d, dev = Path(data_dir), torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)  # on the CPU (tests) the cluster's processes share the host
+    params = json.loads((d / "params.json").read_text())
+    a = {name: np.load(d / f"{name}.npy", mmap_mode="r") for name in MESH_ARRAYS}
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{port}", world, rank)
+    report = {"rank": rank, "backend": dist.get_backend(), "join_s": time.perf_counter() - t0}
+    mesh = make_mesh_2d(chips_per_host=chips, devices=[dev] * chips, group=dist.group.WORLD)
+    if world > 1:
+        try:
+            TpuIndex(d / f"tpu{rank}", device=dev)  # its mesh: one row per process of the world
+        except NotImplementedError as exc:
+            if "the multi-host control plane" not in str(exc) or (d / f"tpu{rank}").exists():
+                raise
+        else:
+            raise AssertionError("TpuIndex served a mesh across processes")
+    out = {}
+    q_pm1, q_scale = (torch.from_numpy(t).to(dev) for t in prepare_queries(a["q_codes"], a["q_lanes"], 256))
+    packed, valid = shard_pm1_database(mesh, a["pm1_packed"], a["pm1_valid"])
+    t0 = time.perf_counter()
+    s, i = hier_pm1_topk(mesh, q_pm1, q_scale, packed, valid, K, 256, chunk_size=params["chunk"])
+    out["pm1_scores"], out["pm1_rows"] = s.cpu().numpy(), i.cpu().numpy()
+    report["pm1_s"] = time.perf_counter() - t0
+    report["pm1_shard_rows"] = [int(t.shape[0]) for t in packed]
+    del packed, valid
+
+    idx = DeviceNphdIndex.from_arrays(a["keys"], a["codes"], a["nlanes"], a["valid"], device=dev, mesh=mesh)
+    queries = bodies_of(np.asarray(a["q_codes"]), np.asarray(a["q_lanes"]))
+    t0 = time.perf_counter()
+    idx.search(queries[:1], K)  # builds and uploads this process's shards
+    report["build_s"] = time.perf_counter() - t0
+    reset_launches()
+    for nq, count in params["searches"]:
+        t0 = time.perf_counter()
+        out[f"keys_{nq}_{count}"], out[f"scores_{nq}_{count}"] = padded_results(idx.search(queries[:nq], count), count)
+        report[f"search_{nq}_{count}_s"] = time.perf_counter() - t0
+    report["launches"] = read_launches()
+    parts = idx._sync_device()
+    if any(len(p.packed_dev) != chips or p.packed_dev[0].shape[0] * chips * world != p.cap for p in parts.values()):
+        raise AssertionError("a process holds other rows than its own block")
+    report["shard_rows"] = {lanes: int(p.packed_dev[0].shape[0]) for lanes, p in parts.items()}
+    if dev.type == "cuda":
+        report["memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    np.savez(d / f"rank{rank}_{world}.npz", **out)
+    (d / f"rank{rank}_{world}.json").write_text(json.dumps(report))
+    idx.close()
+    dist.destroy_process_group()
+
+
+def phase_mesh(dev, single, queries, oracle, tmp, shards=MESH_SHARDS, chips=MESH_CHIPS, qs=MESH_QS,
+               limit=MESH_LIMIT, chunk=MESH_PM1_CHUNK, timeout=MESH_TIMEOUT_S, reps=7, profile=False):
+    """Config 3 row-sharded on the card: the engine over a 1-D mesh of
+    ``shards`` shards in this process against the single-device index
+    ``single`` (the slice's, same rows and removals) and brute force, the
+    int8-twin route per shard (``sharded_pallas_topk``: TPU kernel 4 on a
+    search path), and two clusters started beside it: 2 processes x
+    ``chips`` shards over gloo and one process of ``shards`` shards in a
+    one-rank group (NCCL on the card), each running ``hier_pm1_topk`` and
+    the engine in lockstep. ``profile``: also the mesh index's host split
+    and device time by kernel at the first two batches. Returns (the path's launches, kernel 4's
+    numbers at the shards' shapes, the clusters' outputs by (rank, world))."""
+    rows = single._rows
+    host = {"keys": single._keys[:rows], "codes": single._codes[:rows], "nlanes": single._nlanes[:rows],
+            "valid": single._valid[:rows]}
+    q_codes, q_lanes = pack_codes(queries)
+    sel = np.flatnonzero(host["nlanes"] == 8)  # the 256-bit partition, padded for the plain pm1 scan
+    n_pm1 = -(-len(sel) // (shards * chunk)) * shards * chunk
+    pm1_packed = np.zeros((n_pm1, 8), np.uint32)
+    pm1_packed[: len(sel)] = host["codes"][sel]
+    pm1_valid = np.zeros(n_pm1, bool)
+    pm1_valid[: len(sel)] = host["valid"][sel]
+    data = Path(tmp) / "mesh"
+    data.mkdir()
+    arrays = {**host, "q_codes": q_codes, "q_lanes": q_lanes, "pm1_packed": pm1_packed, "pm1_valid": pm1_valid}
+    for name in MESH_ARRAYS:
+        np.save(data / f"{name}.npy", arrays[name])
+    searches = [(q, K) for q in qs] + [(qs[1], limit)]
+    (data / "params.json").write_text(json.dumps({"chunk": chunk, "searches": searches}))
+
+    # The clusters run beside this process's checks.
+    procs = {}
+    for world, per in ((2, chips), (1, shards)):
+        port = _free_port()
+        for rank in range(world):
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--mesh-worker", str(data), str(rank), str(world),
+                   str(port), str(dev), str(per)]
+            procs[rank, world] = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True)
+    t_start = time.perf_counter()
+    try:
+        mesh = make_mesh(devices=[dev] * shards)
+        t0 = time.perf_counter()
+        idx = DeviceNphdIndex.from_arrays(*(host[n] for n in ("keys", "codes", "nlanes", "valid")), device=dev, mesh=mesh)
+        idx.search(queries[:1], K)
+        sync(dev)
+        log(f"[mesh] {mesh}: from_arrays + first search (builds the sharded partitions): "
+            f"{time.perf_counter() - t0:.3f} s; capacity per lane count "
+            f"{ {lanes: p.cap for lanes, p in sorted(idx._partitions.items())} } "
+            f"(a power of two per shard); device memory {device_memory(dev)}")
+
+        # The path, counted: the sharded searches, then the int8-twin route per shard.
+        reset_launches()
+        hs.blockmax_mma_unpacked.launches = 0
+        scans, stop = spy_routes()
+        got, times = {}, {}
+        try:
+            for nq, count in searches:
+                res = idx.search(queries[:nq], count)
+                got[nq, count] = res
+                if count == K:
+                    times[nq] = warm_searches(idx, queries[:nq], reps)[1]
+        finally:
+            stop()
+        q_packed = torch.from_numpy(q_codes.view(np.int32)).to(dev)
+        q_lanes_dev = torch.from_numpy(q_lanes).to(dev)
+        parts = idx._sync_device()
+        twin_out, kernel4 = {}, []
+        for lanes, p in sorted(parts.items()):
+            nbits, per_shard = lanes * 32, p.cap // shards
+            k = min(_pow2ceil(K), per_shard)
+            min_lanes, q_scale = query_prefix(q_lanes_dev, nbits)
+            twins = shard_unpacked_db(mesh, p.packed_dev, nbits)
+            twin_out[lanes] = sharded_pallas_topk(mesh, q_packed, min_lanes, q_scale, p.packed_dev, twins, p.valid_dev,
+                                                  k, nbits, merge_k=min(_pow2ceil(K), k * shards))
+            with uncounted():
+                want = idx._sharded_scan(q_packed, q_lanes_dev, p.packed_dev, p.valid_dev, k, lanes, K, "mma")
+                if not all(torch.equal(g, w) for g, w in zip(twin_out[lanes], want)):
+                    raise AssertionError(f"[mesh] {nbits}-bit: sharded_pallas_topk differs from the sharded engine scan")
+                call = (q_packed, min_lanes, q_scale, twins[0], p.valid_dev[0])
+                bm, plain = hs.blockmax_mma_unpacked(*call), hs.blockmax_unpacked_plain(*call)
+                if not torch.equal(bm, plain):
+                    raise AssertionError(f"[mesh] {nbits}-bit shard: blockmax_mma_unpacked differs from its plain version")
+                nbytes, ops = phase1_work(per_shard, lanes, len(queries))
+                nbytes += per_shard * (nbits - lanes * 4)  # the twin: one byte per bit, not the packed row
+                b_ms, b_by = bound(nbytes, ops, INT8_OPS_S)
+                kernel4.append({"lanes": lanes, "rows": per_shard, "q": len(queries),
+                                "ms": time_ms(lambda: hs.blockmax_mma_unpacked(*call), dev, 5),
+                                "plain_ms": time_ms(lambda: hs.blockmax_unpacked_plain(*call), dev, 2),
+                                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": float((bm - plain).abs().max())})
+            del twins
+        sync(dev)
+        launches = check_path_launches("[mesh]", dev, read_launches(), scans)
+        launches["blockmax_mma_unpacked"] = hs.blockmax_mma_unpacked.launches
+        log(f"[mesh] launches of the path (sharded searches + the int8-twin route per shard): {launches}")
+        if dev.type == "cuda" and min(launches.values()) <= 0:
+            raise AssertionError(f"[mesh] a kernel of the path was never launched: {launches}")
+        for e in kernel4:
+            log(f"[mesh] blockmax_mma_unpacked == plain at a {e['lanes'] * 32}-bit shard ({e['rows']} rows, "
+                f"Q={e['q']}): {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+                f"({e['bound_by']}) [{CARD.get('smi', 'cpu')}]")
+
+        # Against the single-device index and brute force.
+        q_rows, valid, ref_np, top_ref, sample = oracle
+        for (nq, count), res in got.items():
+            keys, scores = padded_results(res, count)
+            want_keys, want_scores = padded_results(single.search(queries[:nq], count), count)
+            check_sharded(f"[mesh] Q={nq} limit {count}", keys, scores, want_scores, q_codes[:nq], q_lanes[:nq], host)
+            if count == K:
+                part = sample < nq
+                check_results(f"[mesh] Q={nq}", res, q_rows[:nq], valid, ref_np[part], top_ref[part], sample[part])
+        for nq, t in times.items():
+            single_t = warm_searches(single, queries[:nq], reps)[1]
+            log(f"[mesh] warm search Q={nq} k={K}: {shards} shards median {statistics.median(t) * 1e3:.3f} ms, "
+                f"single device {statistics.median(single_t) * 1e3:.3f} ms ({reps} each) [{CARD.get('smi', 'cpu')}]")
+        if profile:
+            for nq in qs[:2]:
+                phase_profile(idx, queries[:nq], "auto", name="mesh")
+        log(f"[mesh] {shards} shards at Q={qs} k={K} and limit {limit}: score multisets equal the single-device "
+            f"index's, every row carries its brute-force score, no removed key; {N_ORACLE} sampled queries against "
+            f"brute force; the int8-twin route per shard equals the sharded scan")
+
+        # The in-process references of the clusters' hier_pm1_topk.
+        q_pm1, q_scale = (torch.from_numpy(t).to(dev) for t in prepare_queries(q_codes, q_lanes, 256))
+        ref_pm1 = {}
+        for world, per in ((2, chips), (1, shards)):
+            grid = make_mesh_2d(world, per, devices=[dev] * (world * per))
+            packed, pvalid = shard_pm1_database(grid, pm1_packed, pm1_valid)
+            ref_pm1[world] = [t.cpu().numpy() for t in hier_pm1_topk(grid, q_pm1, q_scale, packed, pvalid, K, 256,
+                                                                       chunk_size=chunk)]
+            del packed, pvalid
+        outs = {}
+        for key, proc in procs.items():
+            text, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t_start)))
+            if proc.returncode:
+                raise AssertionError(f"[mesh] cluster process {key} failed (exit {proc.returncode}):\n{text[-4000:]}")
+            outs[key] = (dict(np.load(data / f"rank{key[0]}_{key[1]}.npz")),
+                         json.loads((data / f"rank{key[0]}_{key[1]}.json").read_text()))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+
+    pm1_lanes = np.full(n_pm1, 8, np.int32)
+    for (rank, world), (out, report) in sorted(outs.items()):
+        label = f"[mesh] {world}-process cluster, rank {rank} ({report['backend']})"
+        want_backend = "nccl" if world == 1 and dev.type == "cuda" else "gloo"
+        if report["backend"] != want_backend:
+            raise AssertionError(f"{label}: init_distributed chose {report['backend']}, expected {want_backend}")
+        s, r = out["pm1_scores"], out["pm1_rows"]
+        if world > 1 and not (np.array_equal(s, ref_pm1[world][0]) and np.array_equal(r, ref_pm1[world][1])):
+            raise AssertionError(f"{label}: hier_pm1_topk differs from the same 2 x {chips} mesh in one process")
+        if not np.array_equal(s, ref_pm1[world][0]):
+            raise AssertionError(f"{label}: hier_pm1_topk scores differ from one process's")
+        direct = row_scores(q_codes, q_lanes, pm1_packed, pm1_lanes, r)
+        if not (pm1_valid[r[r >= 0]].all() and np.allclose(direct[r >= 0], s[r >= 0], rtol=0, atol=SCORE_ATOL)):
+            raise AssertionError(f"{label}: hier_pm1_topk rows do not carry their brute-force scores")
+        for nq, count in searches:
+            keys, scores = out[f"keys_{nq}_{count}"], out[f"scores_{nq}_{count}"]
+            check_sharded(f"{label} Q={nq} limit {count}", keys, scores, padded_results(got[nq, count], count)[1],
+                          q_codes[:nq], q_lanes[:nq], host)
+        if dev.type == "cuda" and min(report["launches"][n] for n in ("blockmax", "blockmax_small", "gather_rescore",
+                                                                        "blockmax_mma_packed")) <= 0:
+            raise AssertionError(f"{label}: the engine's searches skipped a kernel: {report['launches']}")
+        log(f"{label}: joined in {report['join_s']:.2f} s; rows per shard {report['shard_rows']}, built in "
+            f"{report['build_s']:.3f} s; hier_pm1_topk over {n_pm1} rows {report['pm1_s']:.3f} s "
+            f"(equal to one process's); engine searches " + ", ".join(
+                f"Q={nq}/{count} {report[f'search_{nq}_{count}_s'] * 1e3:.1f} ms" for nq, count in searches)
+            + f" (equal to {shards} shards in one process); launches {report['launches']}"
+            + (f"; peak device memory {report['memory_gib']:.3f} GiB" if "memory_gib" in report else ""))
+    if not all(np.array_equal(outs[0, 2][0][k], outs[1, 2][0][k]) for k in outs[0, 2][0]):
+        raise AssertionError("[mesh] the two processes' answers differ")
+    idx.close()
+    return launches, kernel4, outs
 
 
 # ------------------------------------------------- config 4: the simprint path
@@ -3557,8 +3866,9 @@ def phase_experiments(dev):
     return launches, stats
 
 
-def phase_profile(idx, queries, scan_kernel, reps=5):
-    """Where one warm search's time goes, under ``scan_kernel``.
+def phase_profile(idx, queries, scan_kernel, reps=5, name=""):
+    """Where one warm search's time goes, under ``scan_kernel`` (``name``
+    tells one index's lines and trace from another's).
 
     - Host split (host clock): query packing and kernel launches, waiting
       for the device, and the host merge of the partitions' candidates.
@@ -3570,7 +3880,7 @@ def phase_profile(idx, queries, scan_kernel, reps=5):
     from torch.profiler import ProfilerActivity, profile
 
     idx.scan_kernel = scan_kernel
-    tag = f"[profile {scan_kernel} Q={len(queries)}]"
+    tag = f"[profile{' ' + name if name else ''} {scan_kernel} Q={len(queries)}]"
     collect = idx._collect_results
     split = {"prep_launch": [], "device_wait": [], "host_merge": []}
 
@@ -3613,14 +3923,20 @@ def phase_profile(idx, queries, scan_kernel, reps=5):
         log(f"{tag} {us / 1e3 / reps:9.4f} ms/search  x{n // reps:<3d} {name[:90]}")
     out = Path(__file__).resolve().parent / "build"
     out.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(out / f"chip_smoke_trace_{scan_kernel}_q{len(queries)}.json"))
+    prof.export_chrome_trace(str(out / f"chip_smoke_trace_{name + '_' if name else ''}{scan_kernel}_q{len(queries)}.json"))
 
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the generated codes and queries")
     parser.add_argument("--profile", action="store_true", help="also profile warm searches (device time by kernel)")
+    parser.add_argument("--mesh-worker", nargs=6, metavar=("DIR", "RANK", "WORLD", "PORT", "DEVICE", "CHIPS"),
+                        help="run one process of a [mesh] cluster (started by the [mesh] phase)")
     args = parser.parse_args()
+    if args.mesh_worker:
+        data, rank, world, port, device, chips = args.mesh_worker
+        mesh_worker(data, int(rank), int(world), int(port), device, int(chips))
+        return
 
     t_start = time.perf_counter()
     phase_device()
@@ -3642,10 +3958,16 @@ def main():
                                        ("auto", queries[:1])):
                 phase_profile(idx, batch, scan_kernel)
         phase_persist(rng, dev, idx, queries, tmp)
+        t0 = time.perf_counter()
+        mesh_launches, mesh_kernel4, _ = phase_mesh(dev, idx, queries, oracle, tmp, profile=args.profile)
+        log(f"[mesh] phase time {time.perf_counter() - t0:.1f} s")
         del idx, oracle
     # The config-3 path: the slice's searches and the [route] phase's 'auto' searches.
-    by_path = {"config3": {name: slice_launches[name] + route_launches.get(name, 0) for name in PATH_KERNELS}}
-    launches = {**by_path["config3"], "blockmax_mma_unpacked": twin_launches["blockmax_mma_unpacked"]}
+    by_path = {"config3": {name: slice_launches[name] + route_launches.get(name, 0) for name in PATH_KERNELS},
+               "mesh": {name: mesh_launches[name] for name in PATH_KERNELS}}
+    # Kernel 4 (the int8-twin phase 1): [twin] on the engine's partitions, and the mesh path's twin route per shard.
+    twin_by_path = {"twin": twin_launches["blockmax_mma_unpacked"], "mesh": mesh_launches["blockmax_mma_unpacked"]}
+    launches = {**by_path["config3"], "blockmax_mma_unpacked": sum(twin_by_path.values())}
     for kernel, name in ROUTE_KERNELS.items():
         stats[name]["by_q"] = route_stats(route_table, caps, kernel)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
@@ -3700,6 +4022,9 @@ def main():
             entry["at_simprint_shapes"] = path_stats[name]
             if name in product_stats:
                 entry["at_product_shapes"] = product_stats[name]
+        if name == "blockmax_mma_unpacked":
+            entry["launches_by_path"] = twin_by_path
+            entry["at_mesh_shapes"] = mesh_kernel4
         summary.append(entry)
     print(json.dumps({"kernels": summary}))
     print(json.dumps({

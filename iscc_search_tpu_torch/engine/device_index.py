@@ -22,6 +22,11 @@ fixed-width index over 16-byte keys.
   ``"mma_small"``, ``"mma"``) or, as ``"auto"``, takes per partition the one
   that :func:`auto_phase1` names for the batch size and the partition's
   width.
+- With a ``mesh`` (:mod:`iscc_search_tpu_torch.parallel`), each partition
+  is row-sharded over the mesh at a power-of-two capacity per shard; every
+  shard runs the same per-partition scan on its own device, then the
+  shards' candidates merge (:func:`~iscc_search_tpu_torch.parallel.merge.merge_topk`):
+  on the lead device, and across processes through the mesh's process group.
 - Persistence is the JAX engine's, file for file: sealed immutable segments
   of ``shard_size`` bytes (``seg-%08d.npz``, written once), a rewritable
   active segment and a validity bitmap under a fresh name on every save
@@ -34,8 +39,8 @@ fixed-width index over 16-byte keys.
   never saves.
 
 Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the multi-device ``mesh``, the multi-host ``control_hook`` and
-``scan_kernel="pallas"`` (the port has no Pallas and no XLA scan).
+item): the multi-host ``control_hook`` and ``scan_kernel="pallas"`` (the
+port has no Pallas and no XLA scan).
 """
 
 from __future__ import annotations
@@ -54,13 +59,15 @@ import torch
 
 from iscc_search_tpu_torch.ops.hopper_scan import blockmax_topk_packedq_impl
 from iscc_search_tpu_torch.ops.packing import MAX_LANES, pack_codes, unpack_code
+from iscc_search_tpu_torch.parallel.merge import merge_shards
+from iscc_search_tpu_torch.parallel.pm1_sharded import shard_pm1_database
 
 _MIN_DEVICE_ROWS = 8192  # device partition capacity floor
 _CAP_QUANTUM = 65536  # partition capacity granularity above the floor
 
 logger = logging.getLogger(__name__)
 
-_TODO_PARALLEL = "ROADMAP.md, 'Modules still to port': parallel/* on torch.distributed"
+_TODO_CONTROL = "ROADMAP.md, 'Modules still to port': the multi-host control plane"
 _TODO_KNOBS = "ROADMAP.md, 'Modules still to port': knobs"
 
 SCAN_KERNELS = ("auto", "mma", "mma_small", "popc")
@@ -181,8 +188,10 @@ class _Partition:
     __slots__ = ("packed_dev", "valid_dev", "row_map", "cap", "count")
 
     def __init__(self, packed_dev, valid_dev, row_map, cap, count):
-        self.packed_dev = packed_dev  # (cap, lanes) int32
-        self.valid_dev = valid_dev  # (cap,) uint8; rebound (never mutated) per validity generation
+        # (cap, lanes) int32 and (cap,) uint8; with a mesh, lists of this
+        # process's shards. Validity is rebound (never mutated) per generation.
+        self.packed_dev = packed_dev
+        self.valid_dev = valid_dev
         self.row_map = row_map  # (cap,) int32 global row per device row (padding rows -> 0, invalid)
         self.cap = cap
         self.count = count  # real rows uploaded
@@ -234,12 +243,14 @@ class PackedCodeIndex:
             "mma" (int8 tensor cores, ``wgmma``) or "auto" (per partition and
             batch, :func:`auto_phase1`); the results are the same. On the CPU
             every value runs the plain version.
-        :param mesh: must be None (single device)
+        :param mesh: optional :class:`~iscc_search_tpu_torch.parallel.mesh.Mesh`:
+            partitions row-shard over it and searches merge the shards'
+            candidates; a mesh of one shard is no mesh. Its devices must be
+            of ``device``'s type; its first is the lead device, where
+            queries are prepared and results merged
         :param device: torch device of the partitions, "cuda" by default;
             nothing is auto-detected, and "cuda" without a card raises
         """
-        if mesh is not None:
-            raise NotImplementedError(f"multi-device mesh search is not ported yet ({_TODO_PARALLEL})")
         if scan_kernel not in SCAN_KERNELS:
             raise NotImplementedError(
                 f"scan_kernel={scan_kernel!r} is not ported: the port has {SCAN_KERNELS} ({_TODO_KNOBS})"
@@ -251,8 +262,13 @@ class PackedCodeIndex:
         self.shard_rows = max(1024, shard_size // self.ROW_BYTES)
         self.recall_target = recall_target if (recall_target is None or recall_target < 1.0) else None
         self.scan_kernel = scan_kernel
-        self.mesh = None
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
         self.device = resolve_device(device)
+        if self.mesh is not None:
+            kinds = {d.type for d in self.mesh.devices}
+            if kinds != {self.device.type}:
+                raise ValueError(f"device={str(device)!r}, but the mesh's shards are on {sorted(kinds)}")
+            self.device = self.mesh.devices[0]
         # An in-memory index has no directory to save to (a follower of the
         # JAX engine's multi-host service turns this off the same way).
         self.save_enabled = self.path is not None
@@ -347,7 +363,7 @@ class PackedCodeIndex:
     @control_hook.setter
     def control_hook(self, hook):
         if hook is not None:
-            raise NotImplementedError(f"the multi-host control hook is not ported yet ({_TODO_PARALLEL})")
+            raise NotImplementedError(f"the multi-host control hook is not ported yet ({_TODO_CONTROL})")
 
     @property
     def _keymap(self):
@@ -795,18 +811,37 @@ class PackedCodeIndex:
         q_codes, q_lanes = pack_codes([self._vector_bytes(b) for b in query_bodies], self.max_lanes)
         q_codes_dev = _to_device(q_codes, self.device)
         q_lanes_dev = _to_device(q_lanes, self.device)
+        n_shards = self.mesh.size if self.mesh is not None else 1
         pending = []
         for lanes in sorted(partitions):
             packed_dev, valid_dev, row_map, cap = partitions[lanes]
-            # k as the JAX engine buckets it (pow2, at most the partition);
-            # trimmed to `count` in _collect_results.
-            k = min(_pow2ceil(max(1, count)), cap)
+            # k as the JAX engine buckets it (pow2, at most the partition or
+            # the shard); trimmed to `count` in _collect_results.
+            k = min(_pow2ceil(max(1, count)), cap // n_shards)
             phase1 = auto_phase1(len(query_bodies), lanes) if self.scan_kernel == "auto" else self.scan_kernel
-            scores, rows = blockmax_topk_packedq_impl(
-                q_codes_dev, q_lanes_dev, packed_dev, valid_dev, k, lanes * 32, phase1=phase1
-            )
+            if self.mesh is None:
+                scores, rows = blockmax_topk_packedq_impl(
+                    q_codes_dev, q_lanes_dev, packed_dev, valid_dev, k, lanes * 32, phase1=phase1
+                )
+            else:
+                scores, rows = self._sharded_scan(q_codes_dev, q_lanes_dev, packed_dev, valid_dev, k, lanes, count, phase1)
             pending.append((row_map, scores, rows))
         return self._collect_results(pending, len(query_bodies), count, keys_snapshot, return_rows)
+
+    def _sharded_scan(self, q_codes, q_lanes, packed_shards, valid_shards, k, lanes, count, phase1):
+        # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+        """One partition's search on the mesh: the single-device scan on each
+        of this process's shards (on its device), rows lifted to the
+        partition's global rows, then the merge (across processes too).
+        The merge keeps ``merge_k = min(pow2(count), k * n_shards)``: a count
+        above the per-shard ``k`` would otherwise drop rows that exist
+        across shards."""
+        parts = [
+            blockmax_topk_packedq_impl(q_codes.to(p.device), q_lanes.to(p.device), p, v, k, lanes * 32, phase1=phase1)
+            for p, v in zip(packed_shards, valid_shards)
+        ]
+        merge_k = min(_pow2ceil(max(1, count)), k * self.mesh.size)
+        return merge_shards(self.mesh, parts, packed_shards[0].shape[0], merge_k)
 
     def _collect_results(self, pending, nq, count, keys_snapshot, return_rows):
         # type: (list, int, int, np.ndarray, bool) -> list[tuple]
@@ -1024,14 +1059,16 @@ class PackedCodeIndex:
         Mirror the host arrays on the device as per-length partitions: a full
         build on first use, afterwards only the rows appended since the last
         sync (a partition whose capacity overflows is rebuilt alone) and,
-        after tombstoning, fresh validity tensors.
+        after tombstoning, fresh validity tensors. With a mesh every sync
+        rebuilds in full: an append would fill only the last shard's rows
+        and break the equal blocks.
         """
         if not self._device_stale and self._partitions is not None:
             return self._partitions
 
         rows = self._rows
         try:
-            if self._partitions is None:
+            if self._partitions is None or self.mesh is not None:
                 self._partitions = {}
                 nlanes = self._nlanes[:rows]
                 for lanes in np.unique(nlanes):
@@ -1069,15 +1106,23 @@ class PackedCodeIndex:
 
     def _build_partition(self, lanes, row_map):
         # type: (int, np.ndarray) -> _Partition
-        """Upload one partition from scratch (capacity per _cap_rows)."""
+        """Upload one partition from scratch: capacity per _cap_rows, or
+        with a mesh a power of two per shard (equal shard blocks), each
+        process uploading only its own row block."""
         n = len(row_map)
-        cap = _cap_rows(n)
+        if self.mesh is not None:
+            n_shards = self.mesh.size
+            cap = max(_MIN_DEVICE_ROWS, _pow2ceil(-(-n // n_shards))) * n_shards
+        else:
+            cap = _cap_rows(n)
         packed = np.zeros((cap, lanes), np.uint32)
         packed[:n] = self._codes[row_map, :lanes]
         valid = np.zeros((cap,), bool)
         valid[:n] = self._valid[row_map]
         full_map = np.zeros((cap,), np.int32)
         full_map[:n] = row_map
+        if self.mesh is not None:
+            return _Partition(*shard_pm1_database(self.mesh, packed, valid), full_map, cap, n)
         return _Partition(_to_device(packed, self.device), _to_device(valid, self.device), full_map, cap, n)
 
     def _append_to_partition(self, part, lanes, new_rows):

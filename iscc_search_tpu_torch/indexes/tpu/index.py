@@ -2,9 +2,10 @@
 The index backend over the port's engines (port of
 ``iscc_search_tpu/indexes/tpu/index.py``, the flagship backend; module path
 and class name kept so a reader finds the counterpart). The code is the JAX
-package's but for the ``device`` argument and the multi-device and
-multi-host paths, which raise ``NotImplementedError`` naming ROADMAP.md's
-queue-1 item "parallel/* on torch.distributed".
+package's but for the ``device`` argument and the multi-host control plane
+(a mesh across processes, ``follow``), which raises ``NotImplementedError``
+naming ROADMAP.md's queue-1 item "the multi-host control plane". A mesh in
+one process (``mesh_devices``, ``mesh_hosts``) serves.
 
 Functional twin of the reference's usearch backend (UsearchIndex,
 iscc_search/indexes/usearch/index.py) re-architected for the device scan engine:
@@ -71,7 +72,7 @@ if TYPE_CHECKING:  # pragma: no cover
 
 logger = get_logger(__name__)
 
-_TODO_PARALLEL = "ROADMAP.md, 'Modules still to port': parallel/* on torch.distributed"
+_TODO_CONTROL = "ROADMAP.md, 'Modules still to port': the multi-host control plane"
 
 # HostStore database names
 DB_META = "metadata"
@@ -120,7 +121,7 @@ class TpuIndex:
 
         self._opts = search_opts.override(options)
         self.device = resolve_device(device)
-        self._device_mesh()  # a mesh is not ported: raise before touching the directory
+        self._init_multihost()  # builds the mesh; a multi-process one raises before the directory is touched
         self.path = Path(path)
         self.path.mkdir(parents=True, exist_ok=True)
         self.max_dim = max_dim
@@ -1007,23 +1008,48 @@ class TpuIndex:
         return self.store.get(DB_META, b"spi_v1:" + sp_type.encode()) is not None
 
     def _device_mesh(self):
-        # type: () -> None
-        """The search mesh: None (one device). A mesh (``mesh_devices > 1``)
-        or several hosts (``mesh_hosts > 1``) raises until ``parallel/*`` is
-        ported."""
-        if self._opts.mesh_devices > 1 or self._opts.mesh_hosts > 1:
-            raise NotImplementedError(
-                f"mesh_devices={self._opts.mesh_devices}, mesh_hosts={self._opts.mesh_hosts}: "
-                f"multi-device and multi-host search are not ported yet ({_TODO_PARALLEL})"
-            )
-        return None
+        # type: () -> ...
+        """Shared search mesh (lazy, cached): 1-D over ``mesh_devices``
+        devices of this index's type, or the 2-D (dcn x ici) mesh when
+        ``mesh_hosts`` (explicit) or the ``torch.distributed`` world says so."""
+        if not hasattr(self, "_mesh"):
+            from iscc_search_tpu_torch.parallel.mesh import process_count
+
+            n_procs = process_count()
+            hosts = self._opts.mesh_hosts or (n_procs if n_procs > 1 else 0)
+            if hosts > 1:
+                from iscc_search_tpu_torch.parallel import make_mesh_2d
+
+                self._mesh = make_mesh_2d(hosts, self._opts.mesh_devices or None, device=self.device)
+            elif self._opts.mesh_devices > 1:
+                from iscc_search_tpu_torch.parallel import make_mesh
+
+                self._mesh = make_mesh(self._opts.mesh_devices, device=self.device)
+            else:
+                self._mesh = None
+        return self._mesh
 
     # ------------------------------------------------------------- multi-host
+
+    def _init_multihost(self):
+        # type: () -> None
+        """Build the mesh. Under a ``torch.distributed`` world of several
+        processes the mesh would cross them, which needs the cluster control
+        plane (the JAX package's ``MultihostService``), not ported yet: it
+        raises, before the mesh's collectives."""
+        from iscc_search_tpu_torch.parallel.mesh import process_count
+
+        if process_count() > 1:
+            raise NotImplementedError(
+                f"a mesh across {process_count()} processes needs the multi-host control plane, "
+                f"which is not ported yet ({_TODO_CONTROL})"
+            )
+        self._device_mesh()
 
     def follow(self):
         # type: () -> None
         """Follower loop of a multi-host cluster: not ported yet."""
-        raise NotImplementedError(f"the multi-host follower loop is not ported yet ({_TODO_PARALLEL})")
+        raise NotImplementedError(f"the multi-host follower loop is not ported yet ({_TODO_CONTROL})")
 
     def _new_nphd_index(self, unit_type, path=None):
         # type: (str, ...) -> DeviceNphdIndex

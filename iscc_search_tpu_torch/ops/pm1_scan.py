@@ -38,14 +38,18 @@ def unpack_pm1(packed, nbits):
 
     Bit order: lanes in order, MSB-first within each lane — identical to the
     big-endian byte order of the original code bodies, so 64-bit group g
-    occupies columns [64g, 64g+64).
+    occupies columns [64g, 64g+64). Each byte of a word (most significant
+    first, masked after the shift) indexes a table of its eight ±1 values.
     """
     lanes = nbits // 32
-    shifts = torch.arange(31, -1, -1, dtype=torch.int64, device=packed.device)
-    words = packed[:, :lanes, None].to(torch.int64) & 0xFFFFFFFF
-    bits = (words >> shifts) & 1
-    bits = bits.reshape(packed.shape[0], nbits)
-    return torch.where(bits > 0, 1.0, -1.0).to(torch.float32)
+    shifts = torch.tensor([24, 16, 8, 0], dtype=torch.int32, device=packed.device)
+    byte_vals = (packed[:, :lanes, None] >> shifts) & 0xFF  # (N, lanes, 4)
+    table = _PM1_BYTES.to(packed.device)
+    return table[byte_vals.long()].reshape(packed.shape[0], nbits)
+
+
+# Row b: the eight bits of byte b, most significant first, as ±1 float32.
+_PM1_BYTES = (((torch.arange(256)[:, None] >> torch.arange(7, -1, -1)) & 1) * 2 - 1).to(torch.float32)
 
 
 def unpack_pm1_np(packed, nbits):
@@ -168,6 +172,41 @@ def _chunk_scores(q_pm1, q_scale, chunk_packed, chunk_valid, nbits):
     return torch.where(chunk_valid[None, :], s, NEG_SCORE)
 
 
+def pm1_topk_impl(q_pm1, q_scale, db_packed, db_valid, k, nbits, chunk_size=32768, recall_target=None):
+    # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+    """
+    Exact top-k scan via the ±1 matmul identity: each chunk is scored and
+    its top-k kept, then one final top-k over every chunk's winners.
+
+    :param q_pm1: (Q, nbits) float32 ±1/0 prefix-masked queries
+    :param q_scale: (Q,) float32 per-query scale = 1 / (2 * min_bits)
+    :param db_packed: (N, nbits//32) int32 packed codes, N % chunk_size == 0
+    :param db_valid: (N,) bool tombstone/padding mask
+    :param recall_target: accepted for the JAX signature and served EXACTLY
+        (the JAX engine's approximate per-chunk top-k is not ported)
+    :return: (scores (Q, k) float32 desc, indices (Q, k) int64, -1 padding)
+    """
+    n = db_packed.shape[0]
+    if n % chunk_size:
+        raise ValueError(f"db size {n} not a multiple of chunk_size {chunk_size}")
+    db_valid = db_valid.to(torch.bool)
+    kk = min(k, chunk_size)
+    all_s, all_i = [], []
+    for base in range(0, n, chunk_size):
+        s = _chunk_scores(q_pm1, q_scale, db_packed[base : base + chunk_size], db_valid[base : base + chunk_size], nbits)
+        ts, ti = torch.topk(s, kk, dim=1)
+        all_s.append(ts)
+        all_i.append(ti + base)
+    all_s, all_i = torch.cat(all_s, dim=1), torch.cat(all_i, dim=1)
+    out_k = min(k, all_s.shape[1])
+    fs, pos = torch.topk(all_s, out_k, dim=1)
+    fi = torch.where(fs > NEG_SCORE, torch.gather(all_i, 1, pos), -1)
+    if out_k < k:
+        fs = torch.nn.functional.pad(fs, (0, k - out_k), value=NEG_SCORE)
+        fi = torch.nn.functional.pad(fi, (0, k - out_k), value=-1)
+    return fs, fi
+
+
 def pm1_blockmax_topk_impl(q_pm1, q_scale, db_packed, db_valid, k, nbits, chunk_size=32768, block=128):
     # type: (...) -> tuple[torch.Tensor, torch.Tensor]
     """
@@ -194,15 +233,8 @@ def pm1_blockmax_topk_impl(q_pm1, q_scale, db_packed, db_valid, k, nbits, chunk_
     db_valid = db_valid.to(torch.bool)
     total_blocks = n // block
     if total_blocks < k:
-        # Tiny database: score every row and take the top-k directly.
-        scores = _chunk_scores(q_pm1, q_scale, db_packed, db_valid, nbits)
-        out_k = min(k, n)
-        fs, fi = torch.topk(scores, out_k, dim=1)
-        fi = torch.where(fs > NEG_SCORE, fi, -1)
-        if out_k < k:
-            fs = torch.nn.functional.pad(fs, (0, k - out_k), value=NEG_SCORE)
-            fi = torch.nn.functional.pad(fi, (0, k - out_k), value=-1)
-        return fs, fi
+        # Tiny database: the single-phase exact path is cheap enough.
+        return pm1_topk_impl(q_pm1, q_scale, db_packed, db_valid, k, nbits, chunk_size)
 
     block_max = torch.empty((q, total_blocks), dtype=torch.float32, device=q_pm1.device)
     bpc = chunk_size // block
@@ -220,3 +252,17 @@ def pm1_blockmax_topk_impl(q_pm1, q_scale, db_packed, db_valid, k, nbits, chunk_
     fs, pos = torch.topk(scores, k, dim=1)
     fi = torch.gather(rows, 1, pos)
     return fs, torch.where(fs > NEG_SCORE, fi, -1)
+
+
+def pm1_topk_packedq_impl(q_packed, q_lanes, db_packed, db_valid, k, nbits, **kw):
+    # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+    """Query prep from packed queries + :func:`pm1_topk_impl`."""
+    q_pm1, q_scale = prepare_queries_impl(q_packed, q_lanes, nbits)
+    return pm1_topk_impl(q_pm1, q_scale, db_packed, db_valid, k, nbits, **kw)
+
+
+def pm1_blockmax_topk_packedq_impl(q_packed, q_lanes, db_packed, db_valid, k, nbits, **kw):
+    # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+    """Query prep from packed queries + :func:`pm1_blockmax_topk_impl`."""
+    q_pm1, q_scale = prepare_queries_impl(q_packed, q_lanes, nbits)
+    return pm1_blockmax_topk_impl(q_pm1, q_scale, db_packed, db_valid, k, nbits, **kw)

@@ -15,7 +15,8 @@ aggregator mode (``aggregator_network``) the
 transparency-log poller runs on a dedicated asyncio thread
 (``AggregatorRunner``, a copy), started after the socket is bound and
 stopped before the index is closed. Multi-host serving (``distributed``) is
-not ported and raises ``NotImplementedError`` naming its ROADMAP.md item.
+not ported and raises ``NotImplementedError`` naming its ROADMAP.md item
+("the multi-host control plane").
 """
 
 from __future__ import annotations
@@ -123,9 +124,9 @@ def serve(opts=None, device="cuda"):
 
     opts = opts or search_opts
     if opts.distributed:
-        from iscc_search_tpu_torch.engine.device_index import _TODO_PARALLEL
+        from iscc_search_tpu_torch.engine.device_index import _TODO_CONTROL
 
-        raise NotImplementedError(f"multi-host serving (ISCC_SEARCH_DISTRIBUTED) is not ported: {_TODO_PARALLEL}")
+        raise NotImplementedError(f"multi-host serving (ISCC_SEARCH_DISTRIBUTED) is not ported: {_TODO_CONTROL}")
     if opts.workers and opts.workers > 1:
         # Multi-process scale-out: SO_REUSEPORT HTTP workers + this process
         # as the engine (single writer). Aggregator mode stays single-process

@@ -260,16 +260,23 @@ def test_rebuild_and_reopen_answer_the_same(tmp_path, assets):
     reopened.close()
 
 
-def test_what_is_not_ported_raises(tmp_path):
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TpuIndex(tmp_path / "mesh", device="cpu", mesh_devices=2)
-    assert not (tmp_path / "mesh").exists()
-    with pytest.raises(NotImplementedError, match="parallel"):
-        TpuIndex(tmp_path / "hosts", device="cpu", mesh_hosts=2)
-    index = TpuIndex(tmp_path / "one", device="cpu")
-    with pytest.raises(NotImplementedError, match="follower"):
-        index.follow()
-    index.close()
+def test_what_is_not_ported_raises(tmp_path, assets):
+    """A mesh in one process serves: ``mesh_devices=2`` (1-D) and
+    ``mesh_hosts=2`` (2-D, positional) answer as without a mesh. The
+    follower loop, and a mesh across processes
+    (``tests/test_torch_engine_sharded.py``), name the control plane."""
+    plain = TpuIndex(tmp_path / "one", device="cpu", search_batching=False)
+    plain.add_assets([schema.IsccEntry(**wire(a)) for a in assets])
+    want = _answers(plain, schema.IsccQuery, assets)
+    for name, option in (("mesh", {"mesh_devices": 2}), ("hosts", {"mesh_hosts": 2})):
+        meshed = TpuIndex(tmp_path / name, device="cpu", search_batching=False, **option)
+        meshed.add_assets([schema.IsccEntry(**wire(a)) for a in assets])
+        assert all(part.mesh is not None and part.mesh.size == 2 for part in meshed._nphd_indexes.values())
+        assert _answers(meshed, schema.IsccQuery, assets) == want
+        meshed.close()
+    with pytest.raises(NotImplementedError, match="follower.*the multi-host control plane"):
+        plain.follow()
+    plain.close()
 
 
 def test_a_cuda_entry_point_without_a_card_raises(tmp_path, monkeypatch):

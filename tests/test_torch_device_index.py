@@ -314,14 +314,22 @@ def test_empty_index_and_empty_batch():
 
 
 def test_unported_features_name_their_roadmap_item(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*parallel"):
-        DeviceNphdIndex(mesh=object(), device="cpu")
+    """A mesh in one process is ported (``tests/test_torch_engine_sharded.py``):
+    a mesh of two CPU shards is kept, one of one shard is no mesh, and a mesh
+    on another device type than ``device`` raises. The control hook and
+    ``scan_kernel="pallas"`` still name their ROADMAP.md items."""
+    from iscc_search_tpu_torch.parallel import make_mesh
+
+    assert DeviceNphdIndex(mesh=make_mesh(2, device="cpu"), device="cpu").mesh.size == 2
+    assert DeviceNphdIndex(mesh=make_mesh(1, device="cpu"), device="cpu").mesh is None
+    with pytest.raises(ValueError, match="the mesh's shards are on"):
+        DeviceNphdIndex(mesh=make_mesh(2, devices=["meta", "meta"]), device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP.md.*knobs"):
         DeviceNphdIndex(scan_kernel="pallas", device="cpu")
     idx = DeviceNphdIndex(tmp_path / "new", device="cpu")
     assert idx.control_hook is None
     idx.control_hook = None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*parallel"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md.*the multi-host control plane"):
         idx.control_hook = lambda *a: None
     idx.close()
 

@@ -781,3 +781,82 @@ def test_the_store_builds_from_its_own_source_on_the_card_host():
         store.put("p", b"a", b"b")
         assert store.get_dups("d", b"k") == [b"v1", b"v2"] and store.get("p", b"a") == b"b"
         store.close()
+
+
+# ------------------------------------------------------------- the mesh path
+
+
+def _mesh(dev, n):
+    from iscc_search_tpu_torch.parallel import make_mesh
+
+    return make_mesh(devices=[dev] * n)
+
+
+def test_meshes_over_cuda_devices(dev):
+    """``make_mesh`` takes the first CUDA devices and raises past
+    ``torch.cuda.device_count()``; a mesh on the card refuses a CPU index."""
+    from iscc_search_tpu_torch.parallel import make_mesh, make_mesh_2d
+
+    assert make_mesh(1).devices == [torch.device("cuda", 0)]
+    with pytest.raises(ValueError, match="only"):
+        make_mesh(torch.cuda.device_count() + 1)
+    assert make_mesh_2d(1).shape == {"dcn": 1, "ici": torch.cuda.device_count()}
+    with pytest.raises(ValueError, match="the mesh's shards are on"):
+        DeviceNphdIndex(device="cpu", mesh=_mesh(dev, 2))
+
+
+@pytest.mark.parametrize("nq", (1, 40, 300))
+def test_sharded_engine_on_card_equals_the_cpu_index(dev, nq):
+    """4 shards on the card: every shard's scan launches its phase-1 kernel
+    and ``gather_rescore`` on the card, the merged answers stay there, and
+    the scores equal the CPU index's (plain versions, no mesh); every row
+    carries its brute-force score."""
+    rng = np.random.default_rng(17)
+    gpu, cpu, codes, lanes, valid = _engine_pair(rng, 30000, mesh=_mesh(dev, 4))
+    parts = gpu._sync_device()
+    assert all(len(p.packed_dev) == 4 and all(t.device == dev for t in p.packed_dev) for p in parts.values())
+    q_rows = rng.integers(0, 30000, nq)
+    bodies = [codes[i, : lanes[i]].astype(">u4").tobytes() for i in q_rows]
+    phase1, gather = sum(fn.launches for fn in hs.PHASE1.values()), hs.gather_rescore.launches
+    res_gpu = gpu.search(bodies, 10)
+    assert sum(fn.launches for fn in hs.PHASE1.values()) == phase1 + 4 * len(parts)
+    assert hs.gather_rescore.launches == gather + 4 * len(parts)
+    ref = nphd_scores(
+        torch.from_numpy(codes[q_rows].view(np.int32)), torch.from_numpy(lanes[q_rows]),
+        torch.from_numpy(codes.view(np.int32)), torch.from_numpy(lanes), torch.from_numpy(valid),
+    ).numpy()
+    for qi, ((kg, sg), (_, sc)) in enumerate(zip(res_gpu, cpu.search(bodies, 10))):
+        np.testing.assert_array_equal(np.sort(sg), np.sort(sc))
+        rows = kg.view(">u8").ravel().astype(np.int64)
+        assert valid[rows].all()
+        np.testing.assert_allclose(ref[qi, rows], sg, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("nbits", WIDTHS)
+def test_sharded_twin_route_launches_kernel_4_per_shard(dev, nbits):
+    """``sharded_pallas_topk`` on 4 shards of the card: kernel 4
+    (``blockmax_mma_unpacked``) and ``gather_rescore`` once per shard, the
+    result ``torch.equal`` to the popc route per shard + the same merge on
+    the card, and its scores to the same call on CPU shards (plain versions)."""
+    from iscc_search_tpu_torch.parallel.merge import lift_rows, merge_topk
+    from iscc_search_tpu_torch.parallel.pallas_sharded import shard_unpacked_db, sharded_pallas_topk
+    from iscc_search_tpu_torch.parallel.pm1_sharded import shard_pm1_database
+
+    q_packed, min_lanes, q_scale, db, valid, _ = _case(dev, nbits, seed=nbits + 5, cap=128 * 64)
+    outs = []
+    for where in (dev, torch.device("cpu")):
+        mesh = _mesh(where, 4)
+        packed, shards_valid = shard_pm1_database(mesh, db.to(where), valid.to(where))
+        twin = shard_unpacked_db(mesh, packed, nbits)
+        query = (q_packed.to(where), min_lanes.to(where), q_scale.to(where))
+        before = hs.blockmax_mma_unpacked.launches, hs.gather_rescore.launches
+        outs.append(sharded_pallas_topk(mesh, *query, packed, twin, shards_valid, 10, nbits, merge_k=16))
+        launched = hs.blockmax_mma_unpacked.launches - before[0], hs.gather_rescore.launches - before[1]
+        assert launched == ((4, 4) if where.type == "cuda" else (0, 0))
+        assert outs[-1][0].device == where
+        if where.type == "cuda":
+            parts = [hs.blockmax_topk_impl(*query, packed[i], shards_valid[i], 10) for i in range(4)]
+            want = merge_topk([s for s, _ in parts], [lift_rows(r, len(packed[i]), i) for i, (_, r) in enumerate(parts)],
+                              mesh, 16)
+            assert torch.equal(outs[-1][0], want[0]) and torch.equal(outs[-1][1], want[1])
+    assert torch.equal(outs[0][0].cpu(), outs[1][0])

@@ -128,11 +128,13 @@ COPIES = {
     "store.kv": (("_load_library",), ("_lib_is_fresh", "_build_library"), ("build_key", "_build_library")),
     # The device argument.
     "engine.simprint": (("SimprintEngine.__init__",), (), ()),
-    # The device argument; a mesh and the multi-host control plane raise.
+    # The device argument; the mesh by the port's parallel/*; a mesh across
+    # processes and the multi-host control plane raise.
     "indexes.tpu.index": (
         ("TpuIndex.__init__", "TpuIndex.close", "TpuIndex.rebuild", "TpuIndex._device_mesh", "TpuIndex.follow",
-         "TpuIndex._new_nphd_index", "TpuIndex._new_simprint_index", "TpuIndex._get_or_create_nphd_index"),
-        ("TpuIndex._init_multihost", "TpuIndex._replica_name", "TpuIndex._resolve_replica"),
+         "TpuIndex._init_multihost", "TpuIndex._new_nphd_index", "TpuIndex._new_simprint_index",
+         "TpuIndex._get_or_create_nphd_index"),
+        ("TpuIndex._replica_name", "TpuIndex._resolve_replica"),
         (),
     ),
     "indexes.tpu.manager": (

@@ -677,6 +677,15 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "iscc_search_tpu_torch.cli.index",
         "iscc_search_tpu_torch.cli.search",
         "iscc_search_tpu_torch.cli.serve",
+        "iscc_search_tpu_torch.ops.pm1_scan",
+        "iscc_search_tpu_torch.parallel",
+        "iscc_search_tpu_torch.parallel.mesh",
+        "iscc_search_tpu_torch.parallel.merge",
+        "iscc_search_tpu_torch.parallel.sharded",
+        "iscc_search_tpu_torch.parallel.pm1_sharded",
+        "iscc_search_tpu_torch.parallel.pallas_sharded",
+        "iscc_search_tpu_torch.parallel.hier",
+        "iscc_search_tpu_torch.parallel.distributed",
     } <= set(names)
 
 

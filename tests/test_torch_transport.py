@@ -422,8 +422,8 @@ def test_serve_answers_and_drains_on_sigterm(scheme, tmp_path):
 
 
 @pytest.mark.parametrize("update,item", [
-    ({"distributed": True}, "ROADMAP.md, 'Modules still to port': parallel"),
-    ({"distributed": True, "workers": 2}, "ROADMAP.md, 'Modules still to port': parallel"),
+    ({"distributed": True}, "ROADMAP.md, 'Modules still to port': the multi-host control plane"),
+    ({"distributed": True, "workers": 2}, "ROADMAP.md, 'Modules still to port': the multi-host control plane"),
 ])
 def test_serve_refuses_what_is_not_ported(update, item):
     opts = SearchOptions(index_uri="memory://").override(update)
