@@ -85,14 +85,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    limit 100 (Q=32) against the single-device index (score multisets),
    brute force (every returned row's score, the sampled top-10s, no removed
    key) and with each scan on the kernel ``auto_phase1`` names; the
-   int8-twin route per shard (``sharded_pallas_topk``: TPU kernel 4 on a
-   search path) ``torch.equal`` to the sharded scan, and kernel 4 to its
-   plain version at each partition's shard; warm ms beside the single
-   device's. Beside it two clusters in subprocesses (``--mesh-worker``): 2
-   processes x 2 shards joined by gloo and one process of 4 shards in a
-   one-rank NCCL group, each uploading only its own row block, running
-   ``hier_pm1_topk`` over the 256-bit partition and the engine's searches
-   in lockstep: answers equal one process's (the gloo pair's
+   int8-twin route per shard (``sharded_pallas_topk``, called directly:
+   TPU kernel 4, which no search request reaches) ``torch.equal`` to the
+   sharded scan, and kernel 4 to its plain version at each partition's
+   shard; warm ms beside the single device's. Then, one after the other,
+   two clusters in subprocesses (``--mesh-worker``): 2 processes x 2
+   shards joined by gloo and one process of 4 shards in a one-rank NCCL
+   group, each uploading only its own row block, running ``hier_pm1_topk``
+   over the 256-bit partition and the engine's searches in lockstep (the
+   median of 7 warm calls per batch): answers equal one process's (the gloo pair's
    ``hier_pm1_topk`` bit for bit), and ``TpuIndex`` refuses a mesh across
    processes. Its launches are ``launches_by_path["mesh"]``;
 8. experiments (run last) — the phase-1 experiment entry points of
@@ -1210,7 +1211,9 @@ def mesh_worker(data_dir, rank, world, port, device, chips):
     that ``TpuIndex`` refuses a mesh across processes, then runs
     ``hier_pm1_topk`` over the 256-bit partition and the engine's searches
     in lockstep with the other processes, each uploading only its own row
-    block. Writes ``rank<r>.npz`` and ``rank<r>.json`` into ``data_dir``."""
+    block. Each batch's first call gives the answers that are checked; its
+    time is the median of ``reps`` calls after it. Writes ``rank<r>.npz`` and
+    ``rank<r>.json`` into ``data_dir``."""
     import torch.distributed as dist
 
     d, dev = Path(data_dir), torch.device(device)
@@ -1251,7 +1254,13 @@ def mesh_worker(data_dir, rank, world, port, device, chips):
     for nq, count in params["searches"]:
         t0 = time.perf_counter()
         out[f"keys_{nq}_{count}"], out[f"scores_{nq}_{count}"] = padded_results(idx.search(queries[:nq], count), count)
-        report[f"search_{nq}_{count}_s"] = time.perf_counter() - t0
+        report[f"first_{nq}_{count}_s"] = time.perf_counter() - t0
+        times = []
+        for _ in range(params["reps"]):
+            t0 = time.perf_counter()
+            idx.search(queries[:nq], count)
+            times.append(time.perf_counter() - t0)
+        report[f"search_{nq}_{count}_s"] = statistics.median(times)
     report["launches"] = read_launches()
     parts = idx._sync_device()
     if any(len(p.packed_dev) != chips or p.packed_dev[0].shape[0] * chips * world != p.cap for p in parts.values()):
@@ -1271,10 +1280,12 @@ def phase_mesh(dev, single, queries, oracle, tmp, shards=MESH_SHARDS, chips=MESH
     ``shards`` shards in this process against the single-device index
     ``single`` (the slice's, same rows and removals) and brute force, the
     int8-twin route per shard (``sharded_pallas_topk``: TPU kernel 4 on a
-    search path), and two clusters started beside it: 2 processes x
-    ``chips`` shards over gloo and one process of ``shards`` shards in a
-    one-rank group (NCCL on the card), each running ``hier_pm1_topk`` and
-    the engine in lockstep. ``profile``: also the mesh index's host split
+    search path), then two clusters, one after the other and after this
+    process's timed searches, so that no two of them share the card or the
+    host: 2 processes x ``chips`` shards over gloo and one process of
+    ``shards`` shards in a one-rank group (NCCL on the card), each running
+    ``hier_pm1_topk`` and the engine in lockstep; ``timeout`` bounds both
+    clusters together. ``profile``: also the mesh index's host split
     and device time by kernel at the first two batches. Returns (the path's launches, kernel 4's
     numbers at the shards' shapes, the clusters' outputs by (rank, world))."""
     rows = single._rows
@@ -1293,121 +1304,102 @@ def phase_mesh(dev, single, queries, oracle, tmp, shards=MESH_SHARDS, chips=MESH
     for name in MESH_ARRAYS:
         np.save(data / f"{name}.npy", arrays[name])
     searches = [(q, K) for q in qs] + [(qs[1], limit)]
-    (data / "params.json").write_text(json.dumps({"chunk": chunk, "searches": searches}))
+    (data / "params.json").write_text(json.dumps({"chunk": chunk, "searches": searches, "reps": reps}))
 
-    # The clusters run beside this process's checks.
-    procs = {}
-    for world, per in ((2, chips), (1, shards)):
-        port = _free_port()
-        for rank in range(world):
-            cmd = [sys.executable, str(Path(__file__).resolve()), "--mesh-worker", str(data), str(rank), str(world),
-                   str(port), str(dev), str(per)]
-            procs[rank, world] = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
-                                                  stderr=subprocess.STDOUT, text=True)
-    t_start = time.perf_counter()
+    mesh = make_mesh(devices=[dev] * shards)
+    t0 = time.perf_counter()
+    idx = DeviceNphdIndex.from_arrays(*(host[n] for n in ("keys", "codes", "nlanes", "valid")), device=dev, mesh=mesh)
+    idx.search(queries[:1], K)
+    sync(dev)
+    log(f"[mesh] {mesh}: from_arrays + first search (builds the sharded partitions): "
+        f"{time.perf_counter() - t0:.3f} s; capacity per lane count "
+        f"{ {lanes: p.cap for lanes, p in sorted(idx._partitions.items())} } "
+        f"(a power of two per shard); device memory {device_memory(dev)}")
+
+    # The path, counted: the sharded searches, then the int8-twin route per shard.
+    reset_launches()
+    hs.blockmax_mma_unpacked.launches = 0
+    scans, stop = spy_routes()
+    got, times = {}, {}
     try:
-        mesh = make_mesh(devices=[dev] * shards)
-        t0 = time.perf_counter()
-        idx = DeviceNphdIndex.from_arrays(*(host[n] for n in ("keys", "codes", "nlanes", "valid")), device=dev, mesh=mesh)
-        idx.search(queries[:1], K)
-        sync(dev)
-        log(f"[mesh] {mesh}: from_arrays + first search (builds the sharded partitions): "
-            f"{time.perf_counter() - t0:.3f} s; capacity per lane count "
-            f"{ {lanes: p.cap for lanes, p in sorted(idx._partitions.items())} } "
-            f"(a power of two per shard); device memory {device_memory(dev)}")
-
-        # The path, counted: the sharded searches, then the int8-twin route per shard.
-        reset_launches()
-        hs.blockmax_mma_unpacked.launches = 0
-        scans, stop = spy_routes()
-        got, times = {}, {}
-        try:
-            for nq, count in searches:
-                res = idx.search(queries[:nq], count)
-                got[nq, count] = res
-                if count == K:
-                    times[nq] = warm_searches(idx, queries[:nq], reps)[1]
-        finally:
-            stop()
-        q_packed = torch.from_numpy(q_codes.view(np.int32)).to(dev)
-        q_lanes_dev = torch.from_numpy(q_lanes).to(dev)
-        parts = idx._sync_device()
-        twin_out, kernel4 = {}, []
-        for lanes, p in sorted(parts.items()):
-            nbits, per_shard = lanes * 32, p.cap // shards
-            k = min(_pow2ceil(K), per_shard)
-            min_lanes, q_scale = query_prefix(q_lanes_dev, nbits)
-            twins = shard_unpacked_db(mesh, p.packed_dev, nbits)
-            twin_out[lanes] = sharded_pallas_topk(mesh, q_packed, min_lanes, q_scale, p.packed_dev, twins, p.valid_dev,
-                                                  k, nbits, merge_k=min(_pow2ceil(K), k * shards))
-            with uncounted():
-                want = idx._sharded_scan(q_packed, q_lanes_dev, p.packed_dev, p.valid_dev, k, lanes, K, "mma")
-                if not all(torch.equal(g, w) for g, w in zip(twin_out[lanes], want)):
-                    raise AssertionError(f"[mesh] {nbits}-bit: sharded_pallas_topk differs from the sharded engine scan")
-                call = (q_packed, min_lanes, q_scale, twins[0], p.valid_dev[0])
-                bm, plain = hs.blockmax_mma_unpacked(*call), hs.blockmax_unpacked_plain(*call)
-                if not torch.equal(bm, plain):
-                    raise AssertionError(f"[mesh] {nbits}-bit shard: blockmax_mma_unpacked differs from its plain version")
-                nbytes, ops = phase1_work(per_shard, lanes, len(queries))
-                nbytes += per_shard * (nbits - lanes * 4)  # the twin: one byte per bit, not the packed row
-                b_ms, b_by = bound(nbytes, ops, INT8_OPS_S)
-                kernel4.append({"lanes": lanes, "rows": per_shard, "q": len(queries),
-                                "ms": time_ms(lambda: hs.blockmax_mma_unpacked(*call), dev, 5),
-                                "plain_ms": time_ms(lambda: hs.blockmax_unpacked_plain(*call), dev, 2),
-                                "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": float((bm - plain).abs().max())})
-            del twins
-        sync(dev)
-        launches = check_path_launches("[mesh]", dev, read_launches(), scans)
-        launches["blockmax_mma_unpacked"] = hs.blockmax_mma_unpacked.launches
-        log(f"[mesh] launches of the path (sharded searches + the int8-twin route per shard): {launches}")
-        if dev.type == "cuda" and min(launches.values()) <= 0:
-            raise AssertionError(f"[mesh] a kernel of the path was never launched: {launches}")
-        for e in kernel4:
-            log(f"[mesh] blockmax_mma_unpacked == plain at a {e['lanes'] * 32}-bit shard ({e['rows']} rows, "
-                f"Q={e['q']}): {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
-                f"({e['bound_by']}) [{CARD.get('smi', 'cpu')}]")
-
-        # Against the single-device index and brute force.
-        q_rows, valid, ref_np, top_ref, sample = oracle
-        for (nq, count), res in got.items():
-            keys, scores = padded_results(res, count)
-            want_keys, want_scores = padded_results(single.search(queries[:nq], count), count)
-            check_sharded(f"[mesh] Q={nq} limit {count}", keys, scores, want_scores, q_codes[:nq], q_lanes[:nq], host)
+        for nq, count in searches:
+            res = idx.search(queries[:nq], count)
+            got[nq, count] = res
             if count == K:
-                part = sample < nq
-                check_results(f"[mesh] Q={nq}", res, q_rows[:nq], valid, ref_np[part], top_ref[part], sample[part])
-        for nq, t in times.items():
-            single_t = warm_searches(single, queries[:nq], reps)[1]
-            log(f"[mesh] warm search Q={nq} k={K}: {shards} shards median {statistics.median(t) * 1e3:.3f} ms, "
-                f"single device {statistics.median(single_t) * 1e3:.3f} ms ({reps} each) [{CARD.get('smi', 'cpu')}]")
-        if profile:
-            for nq in qs[:2]:
-                phase_profile(idx, queries[:nq], "auto", name="mesh")
-        log(f"[mesh] {shards} shards at Q={qs} k={K} and limit {limit}: score multisets equal the single-device "
-            f"index's, every row carries its brute-force score, no removed key; {N_ORACLE} sampled queries against "
-            f"brute force; the int8-twin route per shard equals the sharded scan")
-
-        # The in-process references of the clusters' hier_pm1_topk.
-        q_pm1, q_scale = (torch.from_numpy(t).to(dev) for t in prepare_queries(q_codes, q_lanes, 256))
-        ref_pm1 = {}
-        for world, per in ((2, chips), (1, shards)):
-            grid = make_mesh_2d(world, per, devices=[dev] * (world * per))
-            packed, pvalid = shard_pm1_database(grid, pm1_packed, pm1_valid)
-            ref_pm1[world] = [t.cpu().numpy() for t in hier_pm1_topk(grid, q_pm1, q_scale, packed, pvalid, K, 256,
-                                                                       chunk_size=chunk)]
-            del packed, pvalid
-        outs = {}
-        for key, proc in procs.items():
-            text, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t_start)))
-            if proc.returncode:
-                raise AssertionError(f"[mesh] cluster process {key} failed (exit {proc.returncode}):\n{text[-4000:]}")
-            outs[key] = (dict(np.load(data / f"rank{key[0]}_{key[1]}.npz")),
-                         json.loads((data / f"rank{key[0]}_{key[1]}.json").read_text()))
+                times[nq] = warm_searches(idx, queries[:nq], reps)[1]
     finally:
-        for proc in procs.values():
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
+        stop()
+    q_packed = torch.from_numpy(q_codes.view(np.int32)).to(dev)
+    q_lanes_dev = torch.from_numpy(q_lanes).to(dev)
+    parts = idx._sync_device()
+    twin_out, kernel4 = {}, []
+    for lanes, p in sorted(parts.items()):
+        nbits, per_shard = lanes * 32, p.cap // shards
+        k = min(_pow2ceil(K), per_shard)
+        min_lanes, q_scale = query_prefix(q_lanes_dev, nbits)
+        twins = shard_unpacked_db(mesh, p.packed_dev, nbits)
+        twin_out[lanes] = sharded_pallas_topk(mesh, q_packed, min_lanes, q_scale, p.packed_dev, twins, p.valid_dev,
+                                              k, nbits, merge_k=min(_pow2ceil(K), k * shards))
+        with uncounted():
+            want = idx._sharded_scan(q_packed, q_lanes_dev, p.packed_dev, p.valid_dev, k, lanes, K, "mma")
+            if not all(torch.equal(g, w) for g, w in zip(twin_out[lanes], want)):
+                raise AssertionError(f"[mesh] {nbits}-bit: sharded_pallas_topk differs from the sharded engine scan")
+            call = (q_packed, min_lanes, q_scale, twins[0], p.valid_dev[0])
+            bm, plain = hs.blockmax_mma_unpacked(*call), hs.blockmax_unpacked_plain(*call)
+            if not torch.equal(bm, plain):
+                raise AssertionError(f"[mesh] {nbits}-bit shard: blockmax_mma_unpacked differs from its plain version")
+            nbytes, ops = phase1_work(per_shard, lanes, len(queries))
+            nbytes += per_shard * (nbits - lanes * 4)  # the twin: one byte per bit, not the packed row
+            b_ms, b_by = bound(nbytes, ops, INT8_OPS_S)
+            kernel4.append({"lanes": lanes, "rows": per_shard, "q": len(queries),
+                            "ms": time_ms(lambda: hs.blockmax_mma_unpacked(*call), dev, 5),
+                            "plain_ms": time_ms(lambda: hs.blockmax_unpacked_plain(*call), dev, 2),
+                            "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": float((bm - plain).abs().max())})
+        del twins
+    sync(dev)
+    launches = check_path_launches("[mesh]", dev, read_launches(), scans)
+    launches["blockmax_mma_unpacked"] = hs.blockmax_mma_unpacked.launches
+    log(f"[mesh] launches of the path (sharded searches + the int8-twin route per shard): {launches}")
+    if dev.type == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"[mesh] a kernel of the path was never launched: {launches}")
+    for e in kernel4:
+        log(f"[mesh] blockmax_mma_unpacked == plain at a {e['lanes'] * 32}-bit shard ({e['rows']} rows, "
+            f"Q={e['q']}): {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']}) [{CARD.get('smi', 'cpu')}]")
+
+    # Against the single-device index and brute force.
+    q_rows, valid, ref_np, top_ref, sample = oracle
+    for (nq, count), res in got.items():
+        keys, scores = padded_results(res, count)
+        want_keys, want_scores = padded_results(single.search(queries[:nq], count), count)
+        check_sharded(f"[mesh] Q={nq} limit {count}", keys, scores, want_scores, q_codes[:nq], q_lanes[:nq], host)
+        if count == K:
+            part = sample < nq
+            check_results(f"[mesh] Q={nq}", res, q_rows[:nq], valid, ref_np[part], top_ref[part], sample[part])
+    for nq, t in times.items():
+        single_t = warm_searches(single, queries[:nq], reps)[1]
+        log(f"[mesh] warm search Q={nq} k={K}: {shards} shards median {statistics.median(t) * 1e3:.3f} ms, "
+            f"single device {statistics.median(single_t) * 1e3:.3f} ms ({reps} each) [{CARD.get('smi', 'cpu')}]")
+    if profile:
+        for nq in qs[:2]:
+            phase_profile(idx, queries[:nq], "auto", name="mesh")
+    log(f"[mesh] {shards} shards at Q={qs} k={K} and limit {limit}: score multisets equal the single-device "
+        f"index's, every row carries its brute-force score, no removed key; {N_ORACLE} sampled queries against "
+        f"brute force; the int8-twin route per shard equals the sharded scan")
+
+    # The in-process references of the clusters' hier_pm1_topk.
+    q_pm1, q_scale = (torch.from_numpy(t).to(dev) for t in prepare_queries(q_codes, q_lanes, 256))
+    ref_pm1 = {}
+    for world, per in ((2, chips), (1, shards)):
+        grid = make_mesh_2d(world, per, devices=[dev] * (world * per))
+        packed, pvalid = shard_pm1_database(grid, pm1_packed, pm1_valid)
+        ref_pm1[world] = [t.cpu().numpy() for t in hier_pm1_topk(grid, q_pm1, q_scale, packed, pvalid, K, 256,
+                                                                   chunk_size=chunk)]
+        del packed, pvalid
+    deadline = time.perf_counter() + timeout
+    outs = {}
+    for world, per in ((2, chips), (1, shards)):
+        outs.update(run_cluster(data, dev, world, per, deadline))
 
     pm1_lanes = np.full(n_pm1, 8, np.int32)
     for (rank, world), (out, report) in sorted(outs.items()):
@@ -1434,12 +1426,40 @@ def phase_mesh(dev, single, queries, oracle, tmp, shards=MESH_SHARDS, chips=MESH
             f"{report['build_s']:.3f} s; hier_pm1_topk over {n_pm1} rows {report['pm1_s']:.3f} s "
             f"(equal to one process's); engine searches " + ", ".join(
                 f"Q={nq}/{count} {report[f'search_{nq}_{count}_s'] * 1e3:.1f} ms" for nq, count in searches)
-            + f" (equal to {shards} shards in one process); launches {report['launches']}"
+            + f" (median of {reps} after a first call of "
+            + ", ".join(f"{report[f'first_{nq}_{count}_s'] * 1e3:.1f}" for nq, count in searches)
+            + f" ms; equal to {shards} shards in one process); launches {report['launches']}"
             + (f"; peak device memory {report['memory_gib']:.3f} GiB" if "memory_gib" in report else ""))
     if not all(np.array_equal(outs[0, 2][0][k], outs[1, 2][0][k]) for k in outs[0, 2][0]):
         raise AssertionError("[mesh] the two processes' answers differ")
     idx.close()
     return launches, kernel4, outs
+
+
+def run_cluster(data, dev, world, per, deadline):
+    """Run the ``world`` processes of one [mesh] cluster (``per`` shards
+    each) to their end before ``deadline`` (``time.perf_counter()``);
+    raise if one fails or runs past it, and kill the others then. Returns
+    their (arrays, report) by (rank, world)."""
+    port, procs, outs = _free_port(), {}, {}
+    try:
+        for rank in range(world):
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--mesh-worker", str(data), str(rank), str(world),
+                   str(port), str(dev), str(per)]
+            procs[rank, world] = subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                                  stderr=subprocess.STDOUT, text=True)
+        for key, proc in procs.items():
+            text, _ = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+            if proc.returncode:
+                raise AssertionError(f"[mesh] cluster process {key} failed (exit {proc.returncode}):\n{text[-4000:]}")
+            outs[key] = (dict(np.load(data / f"rank{key[0]}_{key[1]}.npz")),
+                         json.loads((data / f"rank{key[0]}_{key[1]}.json").read_text()))
+    finally:
+        for proc in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    return outs
 
 
 # ------------------------------------------------- config 4: the simprint path

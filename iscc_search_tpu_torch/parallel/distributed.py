@@ -26,8 +26,8 @@ logger = logging.getLogger(__name__)
 INIT_TIMEOUT_S = 300  # a process that waits longer for the others, or for a collective, fails
 
 
-def init_distributed(coordinator_address=None, num_processes=None, process_id=None, backend=None):
-    # type: (str | None, int | None, int | None, str | None) -> None
+def init_distributed(coordinator_address=None, num_processes=None, process_id=None):
+    # type: (str | None, int | None, int | None) -> None
     """
     Join (or bootstrap) a multi-process cluster.
 
@@ -35,10 +35,9 @@ def init_distributed(coordinator_address=None, num_processes=None, process_id=No
     listens there) / ISCC_SEARCH_NUM_HOSTS / ISCC_SEARCH_HOST_ID environment
     variables. Single-host setups skip initialization.
 
-    :param backend: ``"nccl"`` or ``"gloo"``; by default NCCL when every
-        process has a card of its own (the processes compare their hosts and
-        cards through the rendezvous store first), else gloo: NCCL refuses
-        two processes on one card
+    The backend is NCCL when every process has a card of its own (the
+    processes compare their hosts and cards through the rendezvous store
+    first), else gloo: NCCL refuses two processes on one card.
     """
     import torch.distributed as dist
 
@@ -56,7 +55,7 @@ def init_distributed(coordinator_address=None, num_processes=None, process_id=No
     host, _, port = coordinator_address.rpartition(":")
     timeout = datetime.timedelta(seconds=INIT_TIMEOUT_S)
     store = dist.TCPStore(host, int(port), num_processes, is_master=process_id == 0, timeout=timeout)
-    backend = backend or _choose_backend(store, num_processes, process_id)
+    backend = _choose_backend(store, num_processes, process_id)
     dist.init_process_group(backend, store=store, world_size=num_processes, rank=process_id, timeout=timeout)
     logger.info(
         f"Joined cluster: process {dist.get_rank()}/{dist.get_world_size()} over {backend}, "

@@ -104,12 +104,12 @@ def shard_database_2d(mesh, db_codes, db_lanes, db_valid):
         raise ValueError(f"db rows {db_codes.shape[0]} not divisible by {n} shards")
     return (
         place_rows(mesh, db_codes),
-        place_rows(mesh, db_lanes, with_cols=False),
-        place_rows(mesh, db_valid, with_cols=False),
+        place_rows(mesh, db_lanes),
+        place_rows(mesh, db_valid),
     )
 
 
-def make_global_array(mesh, local_rows, global_shape, with_cols=True):
+def make_global_array(mesh, local_rows, global_shape):
     # type: (...) -> list
     """
     This process's shards of a row-sharded global array, from its local rows.
@@ -122,7 +122,7 @@ def make_global_array(mesh, local_rows, global_shape, with_cols=True):
     if local_rows.shape[0] != hi - lo:
         raise ValueError(f"{local_rows.shape[0]} local rows, this process owns rows [{lo}, {hi})")
     local = Mesh(mesh.axis_names, mesh.local_shape, mesh.devices)
-    return place_rows(local, local_rows, with_cols)
+    return place_rows(local, local_rows)
 
 
 def hier_topk(mesh, q_codes, q_lanes, db_codes, db_lanes, db_valid, k,

@@ -135,8 +135,8 @@ def upload(array, device):
     return torch.from_numpy(np.ascontiguousarray(array)).to(device)
 
 
-def place_rows(mesh, arr, with_cols=True):
-    # type: (Mesh, np.ndarray | torch.Tensor, bool) -> list[torch.Tensor]
+def place_rows(mesh, arr):
+    # type: (Mesh, np.ndarray | torch.Tensor) -> list[torch.Tensor]
     """
     Row-shard a host array over ALL mesh axes (host-major row order).
 
@@ -144,8 +144,6 @@ def place_rows(mesh, arr, with_cols=True):
     truth) but uploads ONLY its own contiguous row block, split over its
     devices: no device receives another process's rows.
 
-    :param with_cols: accepted for the JAX signature; a shard keeps every
-        trailing axis either way
     :return: this process's shards, one tensor per entry of ``mesh.devices``
     """
     n = arr.shape[0]

@@ -19,17 +19,16 @@ from iscc_search_tpu_torch.parallel.merge import merge_shards
 from iscc_search_tpu_torch.parallel.mesh import place_rows
 
 
-def shard_pm1_database(mesh, db_packed, db_valid, axis_name=None):
+def shard_pm1_database(mesh, db_packed, db_valid):
     # type: (...) -> tuple
     """Place packed codes + validity row-sharded over ALL mesh axes (each
-    process uploads its own row block). ``axis_name`` is accepted for the
-    JAX signature and ignored; the mesh defines its axes.
+    process uploads its own row block).
 
     :return: (packed, valid), each a list of this process's shards
     """
     if db_packed.shape[0] % mesh.size:
         raise ValueError(f"db rows {db_packed.shape[0]} not divisible by {mesh.size} shards")
-    return place_rows(mesh, db_packed), place_rows(mesh, db_valid, with_cols=False)
+    return place_rows(mesh, db_packed), place_rows(mesh, db_valid)
 
 
 def sharded_pm1_topk(
@@ -42,7 +41,6 @@ def sharded_pm1_topk(
     nbits,
     chunk_size=32768,
     recall_target=None,
-    axis_name=None,
     merge_k=None,
 ):
     # type: (...) -> tuple

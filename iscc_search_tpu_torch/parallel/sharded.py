@@ -31,8 +31,8 @@ def shard_database(mesh, db_codes, db_lanes, db_valid, axis_name=SHARD_AXIS):
         raise ValueError(f"db rows {db_codes.shape[0]} not divisible by {n} shards")
     return (
         place_rows(mesh, db_codes),
-        place_rows(mesh, db_lanes, with_cols=False),
-        place_rows(mesh, db_valid, with_cols=False),
+        place_rows(mesh, db_lanes),
+        place_rows(mesh, db_valid),
     )
 
 
@@ -47,7 +47,6 @@ def sharded_topk(
     chunk_size=8192,
     metric="nphd",
     ndim_bits=None,
-    axis_name=SHARD_AXIS,
     merge_k=None,
 ):
     # type: (...) -> tuple

@@ -23,7 +23,8 @@ device the caller names (the card by default), hands the workers their
 options as ``dataclasses.asdict`` (the port's options are a dataclass), and
 spawns them with ``CUDA_VISIBLE_DEVICES=""``: a worker imports torch (the
 options module imports the engine) but never sees the card, so it makes no
-CUDA context beside the engine's.
+CUDA context beside the engine's. It opens every served index before the
+workers start, where the JAX package's opens each on its first request.
 """
 
 from __future__ import annotations
@@ -548,6 +549,11 @@ def serve_scaleout(opts, stop=None, device="cuda"):
 
     index = get_index(opts.index_uri, device=device)
     try:
+        # Open every served index here, before the workers start, as serve()
+        # does: opened lazily by the first request on the engine's IPC
+        # thread, the host store's native open took ~13x as long (PERF.md
+        # section 7) and could outlast a client's timeout.
+        index.list_indexes()
         run_dir = tempfile.mkdtemp(prefix="iscc-scaleout-")
         os.chmod(run_dir, 0o700)
         socket_path = os.path.join(run_dir, "engine.sock")

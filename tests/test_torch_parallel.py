@@ -167,7 +167,7 @@ def test_place_rows_and_process_row_block():
     shards = port_mesh.place_rows(grid, codes)
     assert len(shards) == 8 and all(s.dtype == torch.int32 and s.shape == (8, 8) for s in shards)
     np.testing.assert_array_equal(torch.cat(shards).numpy().view(np.uint32), codes)
-    valid = port_mesh.place_rows(grid, np.arange(64) % 3 == 0, with_cols=False)
+    valid = port_mesh.place_rows(grid, np.arange(64) % 3 == 0)
     assert valid[1].dtype == torch.uint8 and valid[1].tolist() == [int(i % 3 == 0) for i in range(8, 16)]
     assert port_mesh.process_row_block(grid, 64) == (0, 64)
     with pytest.raises(ValueError, match="not divisible by 8 shards"):
@@ -392,7 +392,7 @@ def test_init_distributed_passes_cluster_args(monkeypatch):
         distributed.init_distributed("127.0.0.1:9999", 1, 0)
     assert (seen["rank"], seen["master"], seen["backend"]) == (0, True, "nccl")
     with pytest.raises(RuntimeError):
-        distributed.init_distributed("127.0.0.1:9999", 2, 1, backend="gloo")
+        distributed.init_distributed("127.0.0.1:9999", 2, 1)
     assert (seen["rank"], seen["n"], seen["master"], seen["backend"]) == (1, 2, False, "gloo")
     monkeypatch.delenv("ISCC_SEARCH_NUM_HOSTS")
     with pytest.raises(ValueError, match="process count"):

@@ -168,6 +168,43 @@ def test_serve_scaleout_in_process(tmp_path, monkeypatch):
     assert all(p.terminated for p in spawned if p.poll() is None)
 
 
+def test_serve_scaleout_opens_the_indexes_before_the_workers(tmp_path, monkeypatch):
+    """serve_scaleout opens every served index before it spawns a worker
+    (the JAX engine opens each on its first request, on its IPC thread)."""
+    from iscc_search_tpu_torch.indexes.kv import KvIndexManager
+
+    manager = KvIndexManager(tmp_path)
+    manager.create_index(IsccIndex(name="alpha"))
+    manager.close()
+    events, stop = [], threading.Event()
+    real = KvIndexManager.list_indexes
+    monkeypatch.setattr(KvIndexManager, "list_indexes", lambda self: events.append(
+        ("open", [i.name for i in real(self)])) or real(self))
+
+    class FakeProc:
+        pid = 4000
+
+        def poll(self):
+            return None
+
+        def terminate(self):
+            pass
+
+        def wait(self, timeout=None):
+            return 0
+
+    def fake_popen(cmd, env=None):
+        events.append("spawn")
+        stop.set()
+        return FakeProc()
+
+    monkeypatch.setenv("ISCC_SEARCH_SCALEOUT_FORCE", "1")
+    monkeypatch.setattr(so.subprocess, "Popen", fake_popen)
+    opts = SearchOptions(index_uri=f"kv://{tmp_path}", host="127.0.0.1", port=_free_port(), workers=1)
+    so.serve_scaleout(opts, stop=stop, device="cpu")
+    assert events == [("open", ["alpha"]), "spawn"]
+
+
 def test_serve_scaleout_on_the_default_device_needs_a_card(tmp_path, monkeypatch):
     """No fall-back to the CPU: without a card the default device raises
     before any worker is spawned."""
