@@ -94,8 +94,32 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    group, each uploading only its own row block, running ``hier_pm1_topk``
    over the 256-bit partition and the engine's searches in lockstep (the
    median of 7 warm calls per batch): answers equal one process's (the gloo pair's
-   ``hier_pm1_topk`` bit for bit), and ``TpuIndex`` refuses a mesh across
-   processes. Its launches are ``launches_by_path["mesh"]``;
+   ``hier_pm1_topk`` bit for bit). Its launches are ``launches_by_path["mesh"]``;
+   multihost — the multi-host control plane, two rank processes on the
+   card joined by ``init_distributed`` (gloo: they share it). (a) After
+   [mesh]: ``DeviceNphdIndex(mesh=make_mesh_2d(2, 1))`` in each rank
+   (``--multihost-worker``); rank 0 makes config 3's codes from ``--seed``
+   and drives its engine hooked by ``MultihostService``: ``add_packed`` in
+   batches of 1,048,576 rows, the removal of every 64th key and the slice's
+   4,096 appended rows via ``add``, each acked by rank 1, which gets rows
+   only over the channel (``follow()``); ``check``; searches at Q=512, 32, 1
+   (k=10) and Q=32 at limit 100 (each first call checked, then the median of
+   7 warm calls). Answers equal the single-device index by score multiset
+   and brute force, no removed key, both replicas' rows equal its rows
+   (digests); the mirrored ingest's rows/s beside the same adds without a
+   hook, each op's channel ms beside its local ms, the warm ms beside
+   [mesh]'s gloo pair; each kernel the path launched against its plain
+   version on rank 0's shard at the searches' shapes. (b) After [cli]: two
+   copies of the product index's directory, ``python -m
+   iscc_search_tpu_torch.cli serve`` per rank with
+   ``ISCC_SEARCH_DISTRIBUTED=1`` (``MULTIHOST_SERVE`` runs the CLI's
+   ``__main__`` and prints the rank's launches at exit): rank 1 binds no
+   port, both hold a context on the card; every search kind at limit 10 and
+   100 equal to the direct call (ties in any order), 8 client
+   subprocesses, 200 assets added over HTTP and found, SIGTERM to rank 0:
+   both exit 0, the follower's directory gains no file, the coordinator's
+   holds the assets. Both ranks of both parts are
+   ``launches_by_path["multihost"]``;
 8. experiments (run last) — the phase-1 experiment entry points of
    ``iscc_search_tpu_torch.experiments`` (TPU kernels 8-11): each kernel
    against its plain version (``torch.equal``) on edge cases (Q=77,
@@ -213,14 +237,16 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    by a record's units at limit 10 return it at score 1.0 (their launches:
    ``launches_by_path["aggregator"]``).
 
-``[mesh]`` and phases 9-12 and 14 run after phase 7 and set the launch counts to 0 just
-before they drive their path and read them just after (phase 10's kernel-
-against-plain launches are not counted; phases 11 and 12 count their HTTP
-requests alone, phase 14 its searches of the aggregator's index); the JSON
-summary's ``launches`` of the path kernels is the sum over the seven search
-paths, ``launches_by_path`` splits it (for ``blockmax_mma_unpacked``: the
-twin phase and the mesh path), and ``at_simprint_shapes`` and ``at_product_shapes`` hold phases 9 and
-10's kernel-against-plain numbers, one entry per shape (for
+``[mesh]``, ``[multihost]`` and phases 9-12 and 14 run after phase 7 and set
+the launch counts to 0 just before they drive their path and read them just
+after (``[multihost]``'s rank processes count from their start; phase 10's
+kernel-against-plain launches are not counted; phases 11 and 12 count their
+HTTP requests alone, phase 14 its searches of the aggregator's index); the
+JSON summary's ``launches`` of the path kernels is the sum over the eight
+search paths, ``launches_by_path`` splits it (for ``blockmax_mma_unpacked``:
+the twin phase and the mesh path), and ``at_simprint_shapes``,
+``at_product_shapes`` and ``at_multihost_shapes`` hold phases 9 and 10's and
+[multihost]'s kernel-against-plain numbers, one entry per shape (for
 ``gather_rescore`` the routed form's, with both forms' times).
 ``gather_rescore`` also carries ``by_form``, every [gather] point, and
 ``launches_by_form``, each path's calls by form.
@@ -253,6 +279,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import hashlib
 import itertools
 import json
 import os
@@ -267,6 +294,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import urllib.error
 import urllib.parse
 import urllib.request
@@ -330,6 +358,11 @@ MESH_QS = (512, 32, 1)  # batches of the sharded searches at k=10 (the second al
 MESH_LIMIT = 100
 MESH_PM1_CHUNK = 32768  # rows per step of the plain pm1 scan in hier_pm1_topk
 MESH_TIMEOUT_S = 300  # a cluster process that runs longer fails the phase
+MULTIHOST_BATCH = 1_048_576  # rows per mirrored add_packed of [multihost] (a)
+MULTIHOST_NAME = "config3:DATA"  # the replica name the engine's ops carry over the control channel
+MULTIHOST_TIMEOUT_S = 480  # [multihost] (a): both rank processes, start to exit
+MULTIHOST_NEW_ASSETS = 200  # [multihost] (b): assets added over HTTP to the distributed serve()
+MULTIHOST_SERVE_TIMEOUT_S = 600  # [multihost] (b): both serve() processes, start to exit
 MESH_ARRAYS = ("keys", "codes", "nlanes", "valid", "q_codes", "q_lanes", "pm1_packed", "pm1_valid")
 SCORE_ATOL = 1e-6  # 0.5 + dot*q_scale vs 1 - ham/min_bits: a few f32 ulps near 1.0
 
@@ -1207,8 +1240,7 @@ def check_sharded(label, keys, scores, want_scores, q_codes, q_lanes, host):
 def mesh_worker(data_dir, rank, world, port, device, chips):
     """One process of a [mesh] cluster (``--mesh-worker``): joins the
     ``torch.distributed`` group (the backend that ``init_distributed``
-    chooses), builds the 2-D mesh of ``world`` x ``chips`` shards, checks
-    that ``TpuIndex`` refuses a mesh across processes, then runs
+    chooses), builds the 2-D mesh of ``world`` x ``chips`` shards, then runs
     ``hier_pm1_topk`` over the 256-bit partition and the engine's searches
     in lockstep with the other processes, each uploading only its own row
     block. Each batch's first call gives the answers that are checked; its
@@ -1227,14 +1259,6 @@ def mesh_worker(data_dir, rank, world, port, device, chips):
     init_distributed(f"127.0.0.1:{port}", world, rank)
     report = {"rank": rank, "backend": dist.get_backend(), "join_s": time.perf_counter() - t0}
     mesh = make_mesh_2d(chips_per_host=chips, devices=[dev] * chips, group=dist.group.WORLD)
-    if world > 1:
-        try:
-            TpuIndex(d / f"tpu{rank}", device=dev)  # its mesh: one row per process of the world
-        except NotImplementedError as exc:
-            if "the multi-host control plane" not in str(exc) or (d / f"tpu{rank}").exists():
-                raise
-        else:
-            raise AssertionError("TpuIndex served a mesh across processes")
     out = {}
     q_pm1, q_scale = (torch.from_numpy(t).to(dev) for t in prepare_queries(a["q_codes"], a["q_lanes"], 256))
     packed, valid = shard_pm1_database(mesh, a["pm1_packed"], a["pm1_valid"])
@@ -1436,6 +1460,324 @@ def phase_mesh(dev, single, queries, oracle, tmp, shards=MESH_SHARDS, chips=MESH
     return launches, kernel4, outs
 
 
+def state_digest(engine):
+    """sha256 of an engine's host rows (keys, codes, lane counts, validity):
+    equal digests, equal replicas."""
+    n = engine._rows
+    h = hashlib.sha256()
+    for a in (engine._keys[:n], engine._codes[:n], engine._nlanes[:n], engine._valid[:n]):
+        h.update(np.ascontiguousarray(a).tobytes())
+    return h.hexdigest()
+
+
+def multihost_worker(data_dir, rank, port, ctrl_port, device):
+    """One rank of [multihost] (a) (``--multihost-worker``): joins the
+    two-process ``torch.distributed`` group (gloo: both ranks share one
+    card), holds ``DeviceNphdIndex(mesh=make_mesh_2d(2, 1))`` and its end of
+    the control channel (``MultihostService``). Rank 0, the coordinator,
+    hooks its engine and drives it (:func:`multihost_coordinator`); rank 1
+    gets its rows only over the channel, in ``follow()``, and joins each
+    search's merge. Each rank counts its launches from its start and writes
+    ``rank<r>.json`` (and rank 0 ``rank0.npz``, its answers) into
+    ``data_dir``."""
+    import torch.distributed as dist
+
+    from iscc_search_tpu_torch.parallel.service import MultihostService
+
+    d, dev = Path(data_dir), torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    else:
+        torch.set_num_threads(1)  # on the CPU (tests) both ranks share the host
+    params = json.loads((d / "params.json").read_text())
+    CARD.update(params["card"])  # phase_device's reading of the card, for the bounds
+    reset_launches()
+    scans, stop = spy_routes()
+    t0 = time.perf_counter()
+    init_distributed(f"127.0.0.1:{port}", 2, rank)
+    report = {"rank": rank, "backend": dist.get_backend(), "join_s": time.perf_counter() - t0}
+    idx = DeviceNphdIndex(None, device=dev, mesh=make_mesh_2d(2, 1, device=dev))
+    t0 = time.perf_counter()
+    svc = MultihostService(rank == 0, n_followers=1, host="127.0.0.1", coordinator_host="127.0.0.1", port=ctrl_port,
+                           timeout=params["timeout"])
+    report["connect_s"] = time.perf_counter() - t0
+    try:
+        if rank == 0:
+            out = multihost_coordinator(svc, idx, d, params, dev, report)
+        else:
+            applied = report["applied"] = []
+
+            def timed(op, impl):
+                def run(*args):
+                    t0 = time.perf_counter()
+                    try:
+                        return impl(*args)
+                    finally:
+                        applied.append((op, time.perf_counter() - t0))
+                return run
+
+            for op in ("add", "add_packed", "remove", "search"):
+                setattr(idx, f"_{op}_impl", timed(op, getattr(idx, f"_{op}_impl")))
+
+            def resolve(name):
+                if name != MULTIHOST_NAME:
+                    raise ValueError(f"an op for {name!r}: this follower holds {MULTIHOST_NAME!r}")
+                return idx
+
+            svc.follow(resolve)  # until the coordinator's stop op
+    finally:
+        stop()
+    report.update(launches=read_launches(), scans=scans, by_form=dict(hs.gather_rescore.by_form),
+                  rows=idx._rows, live=idx._live, digest=state_digest(idx), save_enabled=idx.save_enabled)
+    if rank == 0:
+        svc.stop()  # releases the follower
+        report["kernels"] = multihost_kernel_stats(dev, idx, bodies_of(np.load(d / "q_codes.npy"),
+                                                                        np.load(d / "q_lanes.npy")), params)
+        np.savez(d / "rank0.npz", **out)
+    else:
+        svc.stop()
+    if dev.type == "cuda":
+        report["memory_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
+    (d / f"rank{rank}.json").write_text(json.dumps(report))
+    idx.close()
+    dist.destroy_process_group()
+
+
+def multihost_coordinator(svc, idx, d, params, dev, report):
+    """Rank 0 of [multihost] (a): config 3's codes made from the seed (the
+    draw ``main()`` makes first, checked against the single-device index's
+    rows by digest), the same adds without a hook timed, then ``idx`` hooked
+    and driven: ``add_packed`` in batches, ``remove`` of every
+    ``tombstone_every``-th key, ``add`` of the slice's appended rows,
+    ``check``, and each search's first call (its answers) and ``reps``
+    warm calls. Every hooked op's time is split into its local part and
+    the channel's (pickle, send and, for a mutation, the follower's apply
+    and ack). Returns the answers by search."""
+    n, batch = params["n_rows"], params["batch"]
+    t0 = time.perf_counter()
+    codes, lanes = random_codes(np.random.default_rng(params["seed"]), n)
+    report["make_s"] = time.perf_counter() - t0
+    if hashlib.sha256(codes.tobytes() + lanes.tobytes()).hexdigest() != params["digest"]:
+        raise AssertionError("[multihost] the codes made from the seed are not the single-device index's rows")
+    keys = np.arange(n, dtype=">u8").view(np.uint8).reshape(n, 8)
+    plain = DeviceNphdIndex(None, device=dev)  # the same adds without a hook
+    t0 = time.perf_counter()
+    for s in range(0, n, batch):
+        plain.add_packed(keys[s : s + batch], codes[s : s + batch], lanes[s : s + batch])
+    report["plain_ingest_s"] = time.perf_counter() - t0
+    del plain
+
+    svc.hook(MULTIHOST_NAME, idx)
+    hook, ops = idx.control_hook, report.setdefault("ops", [])
+
+    def timed(op, args, local):
+        spent = {}
+
+        def run_local():
+            t0 = time.perf_counter()
+            try:
+                return local()
+            finally:
+                spent["local"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        result = hook(op, args, run_local)
+        total = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        size = len(pickle.dumps((op, MULTIHOST_NAME) + args, protocol=pickle.HIGHEST_PROTOCOL))
+        ops.append({"op": op, "n": len(args[0]), "total_s": total, "local_s": spent["local"],
+                    "pickle_s": time.perf_counter() - t0, "bytes": size})
+        return result
+
+    idx.control_hook = timed
+    t0 = time.perf_counter()
+    for s in range(0, n, batch):
+        idx.add_packed(keys[s : s + batch], codes[s : s + batch], lanes[s : s + batch])
+    report["ingest_s"] = time.perf_counter() - t0
+    del codes, lanes, keys
+    removed = np.arange(0, n, params["tombstone_every"])
+    if idx.remove(removed.tolist()) != len(removed):
+        raise AssertionError("[multihost] the mirrored remove missed keys")
+    app_codes, app_lanes = np.load(d / "append_codes.npy"), np.load(d / "append_lanes.npy")
+    idx.add(list(range(n, n + len(app_lanes))), bodies_of(app_codes, app_lanes))
+    t0 = time.perf_counter()
+    svc.check(MULTIHOST_NAME, idx._rows, idx._live)
+    report["check_s"] = time.perf_counter() - t0
+    queries = bodies_of(np.load(d / "q_codes.npy"), np.load(d / "q_lanes.npy"))
+    out = {}
+    for nq, count in params["searches"]:
+        t0 = time.perf_counter()
+        out[f"keys_{nq}_{count}"], out[f"scores_{nq}_{count}"] = padded_results(idx.search(queries[:nq], count), count)
+        report[f"first_{nq}_{count}_s"] = time.perf_counter() - t0
+        times = []
+        for _ in range(params["reps"]):
+            t0 = time.perf_counter()
+            idx.search(queries[:nq], count)
+            times.append(time.perf_counter() - t0)
+        report[f"search_{nq}_{count}_s"] = statistics.median(times)
+    return out
+
+
+def multihost_kernel_stats(dev, idx, queries, params):
+    """The kernels the cluster's searches launched, each against its plain
+    version on this process's shard of the widest partition at the
+    searches' shapes: the phase-1 kernel ``auto_phase1`` names at each Q
+    (``path_kernel_stats``), and ``gather_rescore`` of the top-kk blocks of
+    the k=10 search at the first Q and the limit search at the second (the
+    engine's kk: k bucketed to a power of two). Uncounted."""
+    p = idx._sync_device()[max(idx._sync_device())]
+    lanes = p.packed_dev[0].shape[1]
+    part = types.SimpleNamespace(cap=p.packed_dev[0].shape[0], packed_dev=p.packed_dev[0], valid_dev=p.valid_dev[0])
+    qs, limit = params["qs"], params["limit"]
+    shapes = [(ROUTE_KERNELS[auto_phase1(nq, lanes)], nq, None) for nq in qs]
+    label = f"[multihost] rank 0 shard of the {lanes * 32}-bit partition"
+    with uncounted():
+        stats = path_kernel_stats(label, dev, part, queries, shapes)
+        q_codes, q_lanes = pack_codes(queries)
+        for nq, count in ((qs[0], K), (qs[1], limit)):
+            kk = min(_pow2ceil(count), part.cap // hs.BLOCK)
+            q_packed = torch.from_numpy(q_codes[:nq].view(np.int32)).to(dev)
+            min_lanes, q_scale = query_prefix(torch.from_numpy(q_lanes[:nq]).to(dev), lanes * 32)
+            block_ids = topk_blocks_hier(hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, part.packed_dev,
+                                                                part.valid_dev), kk).to(torch.int32)
+            call = (q_packed, min_lanes, block_ids, part.packed_dev)
+            got, want = hs.gather_rescore(*call), hs.gather_rescore_plain(*call)
+            sync(dev)
+            if not torch.equal(got, want):
+                raise AssertionError(f"{label}: gather_rescore at Q={nq}, kk={kk} != plain")
+            blocks = int(torch.unique(block_ids).numel())
+            nbytes, ops = gather_work(nq, kk, lanes, blocks)
+            b_ms, b_by = bound(nbytes, ops, popc_per_s() if dev.type == "cuda" else 1e12)
+            ms = time_ms(functools.partial(hs.gather_rescore, *call), dev, GATHER_REPS if dev.type == "cuda" else 1,
+                         graph=True)
+            plain_ms = time_ms(functools.partial(hs.gather_rescore_plain, *call), dev, 1)
+            stats.setdefault("gather_rescore", []).append({
+                "q": nq, "kk": kk, "cap": part.cap, "form": hs.gather_form(nq, kk, part.cap // hs.BLOCK, lanes),
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                "max_abs_err": float((got - want).abs().max())})
+            log(f"{label} gather_rescore at Q={nq}, kk={kk} (cap {part.cap}): kernel == plain; {ms:.4f} ms (plain "
+                f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms by {b_by})")
+    return stats
+
+
+def phase_multihost(dev, single, queries, oracle, tmp, seed, mesh_outs=None, n_rows=N_ROWS, batch=MULTIHOST_BATCH,
+                    qs=MESH_QS, limit=MESH_LIMIT, reps=7, timeout=MULTIHOST_TIMEOUT_S):
+    """[multihost] (a): config 3 served by one engine over two processes on
+    one card, through the multi-host control plane. Rank 0 makes config 3's
+    ``n_rows`` codes from ``seed`` and mirrors every mutation to rank 1
+    (``add_packed`` in batches of ``batch``, the removal of every 64th key,
+    the slice's appended rows), then runs the searches at Q = ``qs`` (k=10)
+    and ``qs[1]`` at ``limit``: the answers equal the single-device index
+    ``single`` (the slice's, same rows and removals) by score multiset and
+    brute force, the replicas end equal to it, and each kernel the path
+    launched equals its plain version on rank 0 at the searches' shapes.
+    ``mesh_outs``: [mesh]'s clusters, whose gloo pair's times are printed
+    beside. Returns (the launches of both ranks, the kernels' numbers at the
+    cluster's shapes)."""
+    rows = single._rows
+    host = {"keys": single._keys[:rows], "codes": single._codes[:rows], "nlanes": single._nlanes[:rows],
+            "valid": single._valid[:rows]}
+    card = CARD.get("smi", str(dev))
+    data = Path(tmp) / "multihost"
+    data.mkdir()
+    q_codes, q_lanes = pack_codes(queries)
+    for name, array in (("append_codes", host["codes"][n_rows:]), ("append_lanes", host["nlanes"][n_rows:]),
+                        ("q_codes", q_codes), ("q_lanes", q_lanes)):
+        np.save(data / f"{name}.npy", array)
+    searches = [(q, K) for q in qs] + [(qs[1], limit)]
+    digest = hashlib.sha256(np.ascontiguousarray(host["codes"][:n_rows]).tobytes()
+                            + np.ascontiguousarray(host["nlanes"][:n_rows]).tobytes()).hexdigest()
+    (data / "params.json").write_text(json.dumps({
+        "seed": seed, "n_rows": n_rows, "batch": batch, "searches": searches, "reps": reps, "qs": list(qs),
+        "limit": limit, "tombstone_every": TOMBSTONE_EVERY, "digest": digest, "timeout": timeout, "card": CARD}))
+    port, ctrl, procs, texts = _free_port(), _free_port(), [], []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            cmd = [sys.executable, str(Path(__file__).resolve()), "--multihost-worker", str(data), str(rank), str(port),
+                   str(ctrl), str(dev)]
+            procs.append(subprocess.Popen(cmd, cwd=Path(__file__).resolve().parent, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+        for rank, proc in enumerate(procs):
+            text, _ = proc.communicate(timeout=max(1.0, timeout - (time.perf_counter() - t0)))
+            texts.append(text)
+            if proc.returncode:
+                raise AssertionError(f"[multihost] rank {rank} failed (exit {proc.returncode}):\n{text[-4000:]}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    wall = time.perf_counter() - t0
+    reports = [json.loads((data / f"rank{r}.json").read_text()) for r in range(2)]
+    out = dict(np.load(data / "rank0.npz"))
+    coord, follower = reports
+
+    # Both replicas are the single-device index's rows, tombstones and all.
+    want_digest = state_digest(single)
+    for r in reports:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"[multihost] rank {r['rank']}: init_distributed chose {r['backend']}, two ranks on one "
+                                 f"card take gloo")
+        if (r["rows"], r["live"], r["digest"]) != (single._rows, single._live, want_digest):
+            raise AssertionError(f"[multihost] rank {r['rank']}: replica of {r['rows']} rows / {r['live']} live differs "
+                                 f"from the single-device index's {single._rows} / {single._live}")
+    if follower["save_enabled"]:
+        raise AssertionError("[multihost] the follower's replica would save")
+    q_rows, valid, ref_np, top_ref, sample = oracle
+    for nq, count in searches:
+        keys, scores = out[f"keys_{nq}_{count}"], out[f"scores_{nq}_{count}"]
+        _, want_scores = padded_results(single.search(queries[:nq], count), count)
+        check_sharded(f"[multihost] Q={nq} limit {count}", keys, scores, want_scores, q_codes[:nq], q_lanes[:nq], host)
+        if count == K:
+            part = sample < nq
+            res = [(keys[qi][keys[qi] >= 0].astype(">u8").view(np.uint8).reshape(-1, 8),
+                    scores[qi][keys[qi] >= 0]) for qi in range(nq)]
+            check_results(f"[multihost] Q={nq}", res, q_rows[:nq], valid, ref_np[part], top_ref[part], sample[part])
+    for line in texts[0].splitlines():  # rank 0's kernel-against-plain lines
+        if line.startswith("[multihost] rank 0"):
+            log(line)
+    launches = {name: coord["launches"][name] + follower["launches"][name] for name in PATH_KERNELS}
+    forms = {form: coord["by_form"][form] + follower["by_form"][form] for form in hs.GATHER_FORMS}
+    check_path_launches("[multihost]", dev, launches, [tuple(x) for x in coord["scans"] + follower["scans"]], forms)
+    if coord["launches"] != follower["launches"]:
+        raise AssertionError(f"[multihost] the ranks launched differently: {coord['launches']} / {follower['launches']}")
+
+    n_batches = -(-n_rows // batch)
+    log(f"[multihost] 2 ranks on {card} over gloo: joined in {coord['join_s']:.2f} / {follower['join_s']:.2f} s, the "
+        f"control channel connected in {coord['connect_s']:.2f} s; both ran to their end in {wall:.1f} s")
+    log(f"[multihost] mirrored ingest [{card}]: {n_rows} rows in {n_batches} add_packed ops of {batch} rows: "
+        f"{coord['ingest_s']:.3f} s, {n_rows / coord['ingest_s']:.0f} rows/s; the same adds without a hook: "
+        f"{coord['plain_ingest_s']:.3f} s, {n_rows / coord['plain_ingest_s']:.0f} rows/s (codes made from the seed in "
+        f"{coord['make_s']:.1f} s); check {coord['check_s'] * 1e3:.3f} ms")
+    applied = {}
+    for op, secs in follower["applied"]:
+        applied.setdefault(op, []).append(secs)
+    by_op = {}
+    for e in coord["ops"]:
+        by_op.setdefault((e["op"], e["n"] if e["op"] == "search" else None), []).append(e)
+    for (op, nq), entries in by_op.items():
+        med = {k: statistics.median(e[k] for e in entries) * 1e3 for k in ("total_s", "local_s", "pickle_s")}
+        what = f"search Q={nq}" if op == "search" else op
+        follower_ms = (f", the follower's apply median {statistics.median(applied[op]) * 1e3:.3f} ms"
+                       if op in applied and op != "search" else "")
+        log(f"[multihost] op {what:14s} x{len(entries):3d} [{card}]: channel median {med['total_s'] - med['local_s']:.3f} "
+            f"ms (pickle {med['pickle_s']:.3f} ms of {statistics.median(e['bytes'] for e in entries):.0f} bytes, send"
+            + (", the follower's apply and ack" if op != "search" else ", no ack") + f"{follower_ms}), local "
+            f"{med['local_s']:.3f} ms")
+    gloo_pair = (mesh_outs or {}).get((0, 2), (None, {}))[1]
+    for nq, count in searches:
+        pair = gloo_pair.get(f"search_{nq}_{count}_s")
+        log(f"[multihost] warm search Q={nq} limit {count} [{card}]: median {coord[f'search_{nq}_{count}_s'] * 1e3:.3f} "
+            f"ms of {reps} (first call {coord[f'first_{nq}_{count}_s'] * 1e3:.1f} ms); [mesh]'s gloo pair (2 x "
+            f"{MESH_CHIPS} shards, no control plane): " + (f"{pair * 1e3:.3f} ms" if pair is not None else "not run"))
+    log(f"[multihost] launches of both ranks: {launches} (rank 0: {coord['launches']}); answers equal the "
+        f"single-device index by score multiset and brute force on {len(sample)} sampled queries, no removed key; the "
+        f"replicas equal its rows" + (f"; peak device memory per rank {coord['memory_gib']:.3f} / "
+                                      f"{follower['memory_gib']:.3f} GiB" if "memory_gib" in coord else ""))
+    return launches, coord["kernels"]
+
+
 def run_cluster(data, dev, world, per, deadline):
     """Run the ``world`` processes of one [mesh] cluster (``per`` shards
     each) to their end before ``deadline`` (``time.perf_counter()``);
@@ -1488,17 +1830,18 @@ def spy_routes():
     return seen, stop
 
 
-def check_path_launches(label, dev, launches, scans):
+def check_path_launches(label, dev, launches, scans, forms=None):
     """Raise unless every scan of ``scans`` (``spy_routes()``) took the phase-1
     kernel ``auto_phase1`` names for its batch and width and, on a card, the
     path launched each kernel so named and ``gather_rescore``, and no other
-    phase-1 kernel. Returns ``launches``."""
+    phase-1 kernel. ``forms``: ``gather_rescore``'s calls by form where the
+    path ran in other processes (else this process's). Returns ``launches``."""
     for nq, lanes, phase1 in scans:
         if phase1 != auto_phase1(nq, lanes):
             raise AssertionError(f"{label}: a Q={nq} scan of a {lanes * 32}-bit partition took {phase1!r}, "
                                  f"'auto' names {auto_phase1(nq, lanes)!r}")
     named = {hs.PHASE1[phase1].__name__ for _, _, phase1 in scans} | {"gather_rescore"}
-    PATH_FORMS[label] = dict(hs.gather_rescore.by_form)
+    PATH_FORMS[label] = dict(hs.gather_rescore.by_form if forms is None else forms)
     if dev.type == "cuda":
         for name in PATH_KERNELS:
             if (launches[name] > 0) != (name in named):
@@ -2753,6 +3096,227 @@ def phase_server(rng, dev, tmp, truth, direct_rate, n_new=SERVER_NEW_ASSETS, n_s
     return launches, recorded
 
 
+# ------------------------------------------------- multi-host serve()
+
+
+# Runs the CLI as `python -m iscc_search_tpu_torch.cli` does, with the smoke
+# run's counters: every partition scan is recorded (spy_routes) and, at exit,
+# the launches of the kernels, the scans, gather_rescore's calls by form and
+# whether the process held the card (its CUDA context and peak allocation)
+# are printed on one line for the parent.
+MULTIHOST_SERVE = r"""
+import atexit, json, runpy, sys
+import torch
+import chip_smoke
+from iscc_search_tpu_torch.ops import hopper_scan as hs
+
+scans, _ = chip_smoke.spy_routes()
+atexit.register(lambda: print("[multihost-launches] " + json.dumps(
+    {"launches": chip_smoke.read_launches(), "scans": scans, "by_form": hs.gather_rescore.by_form,
+     "cuda": torch.cuda.is_initialized(),
+     "peak_gib": torch.cuda.max_memory_allocated() / 2**30 if torch.cuda.is_initialized() else 0.0}), flush=True))
+sys.argv[0] = "iscc_search_tpu_torch.cli"
+runpy.run_module("iscc_search_tpu_torch.cli", run_name="__main__", alter_sys=True)
+"""
+
+
+def parity(body):
+    """A search answer with its global matches of equal score in one order
+    (the ROADMAP parity rule: tie order is not compared)."""
+    if isinstance(body, dict) and "global_matches" in body:
+        body = dict(body, global_matches=sorted(body["global_matches"], key=lambda m: (-m["score"], m["iscc_id"])))
+    return body
+
+
+def _files(root):
+    return sorted(str(p.relative_to(root)) for p in Path(root).rglob("*") if p.is_file())
+
+
+def phase_multihost_serve(rng, dev, tmp, truth, server, n_new=MULTIHOST_NEW_ASSETS, n_sp=PRODUCT_SIMPRINTS,
+                          clients=PRODUCT_CLIENTS, timeout=MULTIHOST_SERVE_TIMEOUT_S):
+    """[multihost] (b): the product index served by ``serve()`` in
+    distributed mode over two processes on one card. Two copies of the
+    product index's directory, made with the index closed (the store is
+    single-writer): one per rank. ``python -m iscc_search_tpu_torch.cli
+    serve`` twice with ``ISCC_SEARCH_DISTRIBUTED=1``, ``_COORDINATOR``,
+    ``_NUM_HOSTS=2``, ``_HOST_ID``, ``_MULTIHOST_INDEX``,
+    ``_MULTIHOST_CONTROL_PORT`` and ``_INDEX_URI`` (run through
+    ``MULTIHOST_SERVE``, which counts the launches): rank 0 serves HTTP, rank
+    1 follows and binds no port, both hold a context on the card. Every
+    search kind at limit 10 and 100 (``server['picks']``) equal to the direct
+    ``search_assets`` of the same directory opened here (the parity rule for
+    ties); 8 clients from client subprocesses beside [server]'s figure;
+    ``n_new`` assets added over HTTP, mirrored, each then found; SIGTERM to
+    the coordinator: both exit 0, the follower's directory gains no file, and
+    the coordinator's directory reopened here holds the added assets.
+    Returns the launches of both ranks."""
+    base_dir, name = Path(tmp) / PRODUCT_BASE, PRODUCT_NAME
+    card = CARD.get("smi", str(dev))
+    on_card = {} if dev.type == "cuda" else {"device": dev}
+    t_phase = time.perf_counter()
+
+    def slog(msg):
+        log(f"{msg} [{time.perf_counter() - t_phase:.1f} s]")
+
+    picks, work = server["picks"], server["work"]
+    cases = [(kind, limit) for kind in ("units", "simprints", "both", "iscc_id", "iscc_code") for limit in (10, 100)]
+    manager = get_index(f"tpu://{base_dir}", **on_card)
+    try:
+        n_assets = manager.get_index(name).assets
+
+        def direct(q, limit):
+            return manager.search_assets(name, schema.IsccQuery(**q), limit).model_dump(mode="json", exclude_none=True)
+
+        want = {(kind, limit, i): direct(product_query(i, truth[i], kind), limit) for kind, limit in cases for i in picks}
+        want_both = {i: direct(product_query(i, truth[i], "both"), 10) for i in work}
+    finally:
+        manager.close()
+    copies = [Path(tmp) / "multihost_serve" / f"rank{rank}" for rank in range(2)]
+    t0 = time.perf_counter()
+    for copy in copies:
+        shutil.copytree(base_dir, copy)
+    follower_files = _files(copies[1])
+    slog(f"[multihost] serve(): direct answers of the product index ({n_assets} assets) taken here; two copies of its "
+         f"directory in {time.perf_counter() - t0:.1f} s")
+
+    http, store, ctrl = _free_port(), _free_port(), _free_port()
+    device_args = [] if dev.type == "cuda" else ["--device", str(dev)]
+    procs, logs = [], [Path(tmp) / "multihost_serve" / f"serve{rank}.log" for rank in range(2)]
+    t_start = time.perf_counter()
+    for rank in range(2):
+        env = {**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent), "ISCC_SEARCH_DISTRIBUTED": "1",
+               "ISCC_SEARCH_COORDINATOR": f"127.0.0.1:{store}", "ISCC_SEARCH_NUM_HOSTS": "2",
+               "ISCC_SEARCH_HOST_ID": str(rank), "ISCC_SEARCH_MULTIHOST_INDEX": name,
+               "ISCC_SEARCH_MULTIHOST_COORDINATOR": "127.0.0.1", "ISCC_SEARCH_MULTIHOST_CONTROL_PORT": str(ctrl),
+               "ISCC_SEARCH_INDEX_URI": f"tpu://{copies[rank]}", "ISCC_SEARCH_HOST": "127.0.0.1",
+               "ISCC_SEARCH_PORT": str(http)}
+        with open(logs[rank], "wb") as out:
+            procs.append(subprocess.Popen([sys.executable, "-c", MULTIHOST_SERVE, *device_args, "serve"], env=env,
+                                          cwd=Path(__file__).resolve().parent, stdout=out, stderr=subprocess.STDOUT))
+    url = f"http://127.0.0.1:{http}"
+    try:
+        def healthy():
+            if any(p.poll() is not None for p in procs):
+                raise AssertionError("[multihost] a serve() rank exited early:\n" + "\n".join(
+                    f"rank {r}: {logs[r].read_text()[-2000:]}" for r in range(2)))
+            with contextlib.suppress(OSError):
+                return http_json(url, "GET", "/healthz")[:2] == (200, {"status": "ok"})
+            return False
+
+        up_s = wait_for("[multihost] the coordinator's /healthz", healthy, timeout=timeout, poll=0.25)
+        q = product_query(picks[0], truth[picks[0]], "units")
+        status, body, _ = http_json(url, "POST", f"/indexes/{name}/search?limit=10", q)
+        first_s = time.perf_counter() - t_start
+        if (status, parity(body)) != (200, parity(want["units", 10, picks[0]])):
+            raise AssertionError(f"[multihost] serve(): the first search answers {status}, not the direct call's")
+        if listeners(http) != 1:
+            raise AssertionError(f"[multihost] {listeners(http)} sockets listen on the HTTP port: the follower binds none")
+        apps = compute_apps()
+        slog(f"[multihost] serve() over 2 ranks [{card}]: start to /healthz {up_s:.1f} s, to the first answer "
+             f"{first_s:.1f} s (equal to the direct call); one socket listens on the HTTP port (rank 0's); nvidia-smi "
+             f"lists {apps if apps is not None else 'no'} compute app(s) (pids as the card's host sees them; ranks "
+             f"{[p.pid for p in procs]} here)")
+
+        remote = RemoteIndex(url, name, chunk_size=SERVER_CHUNK)
+        http_ms = {}
+        for kind, limit in cases:
+            times = []
+            for i in picks:
+                q = product_query(i, truth[i], kind)
+                t0 = time.perf_counter()
+                if kind == "iscc_code":
+                    r = remote.request("GET", f"/indexes/{name}/search", params={**q, "limit": limit})
+                else:
+                    r = remote.request("POST", f"/indexes/{name}/search", payload=q, params={"limit": limit})
+                times.append(time.perf_counter() - t0)
+                if r.status_code != 200 or parity(r.json()) != parity(want[kind, limit, i]):
+                    raise AssertionError(f"[multihost] {kind} asset {i} limit {limit}: HTTP {r.status_code} differs "
+                                         f"from the direct call: {r.text[:300]}")
+            http_ms[kind, limit] = statistics.median(times) * 1e3
+            single = server["http_ms"].get((kind, limit))
+            slog(f"[multihost] {card}: search {kind:9s} limit {limit:3d} through the 2-rank cluster: HTTP median "
+                 f"{http_ms[kind, limit]:.3f} ms of {len(picks)} (min {min(times) * 1e3:.3f}, max "
+                 f"{max(times) * 1e3:.3f}); [server], one process: " + (f"{single:.3f} ms" if single else "not run")
+                 + "; bodies equal the direct call's")
+
+        load = client_load(url, f"/indexes/{name}/search?limit=10",
+                           [(i, product_query(i, truth[i], "both")) for i in work], clients)
+        bad = [r and r[:2] for r in load["results"] if r is None or r[1] != 200 or parity(r[3]) != parity(want_both[r[0]])]
+        if bad or len(load["results"]) != len(work):
+            raise AssertionError(f"[multihost] client subprocesses: {len(bad)} answers differ from the direct calls")
+        rate = len(work) / load["wall"]
+        slog(f"[multihost] {card}: {clients} keep-alive clients in {load['procs']} client subprocesses x "
+             f"{load['conns']} connections, 'both' limit-10 requests: {load['wall']:.3f} s, {rate:.1f} query assets/s "
+             f"through the 2-rank cluster ([server], one process, the same load: {server['sub_rate']:.1f}); answers "
+             f"equal the direct calls")
+
+        first = n_assets + 100_000  # ISCC-IDs no earlier phase used
+        new_wire = [product_wire(first + j, t) for j, t in enumerate(product_assets(rng, n_new, n_sp)[1])]
+        t0 = time.perf_counter()
+        results = remote.add_assets(name, [schema.IsccEntry(**a) for a in new_wire])
+        ingest_s = time.perf_counter() - t0
+        if [r.status.value for r in results] != ["created"] * len(new_wire):
+            raise AssertionError("[multihost] assets added over HTTP are not all 'created'")
+        t0 = time.perf_counter()
+        missing = [j for j, a in enumerate(new_wire) if a["iscc_id"] not in [
+            m.iscc_id for m in remote.search_assets(name, schema.IsccQuery(units=a["units"]), limit=10).global_matches]]
+        find_s = time.perf_counter() - t0
+        remote.close()
+        if missing:
+            raise AssertionError(f"[multihost] {len(missing)} assets added over HTTP are not found, e.g. {missing[:3]}")
+        slog(f"[multihost] {card}: {len(new_wire)} assets added over HTTP in RemoteIndex batches of {SERVER_CHUNK}, "
+             f"their units mirrored to rank 1: {ingest_s:.3f} s, {len(new_wire) / ingest_s:.1f} assets/s ([server], "
+             f"one process: {server['ingest_rate']:.1f}); each then found by a units search "
+             f"({len(new_wire) / find_s:.1f} searches/s)")
+
+        t0 = time.perf_counter()
+        procs[0].send_signal(signal.SIGTERM)
+        codes = [p.wait(max(1.0, timeout - (time.perf_counter() - t_start))) for p in procs]
+        stop_s = time.perf_counter() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    texts = [lg.read_text() for lg in logs]
+    if codes != [0, 0] or "SIGTERM received" not in texts[0] or "Multi-host follower" not in texts[1]:
+        raise AssertionError(f"[multihost] SIGTERM to the coordinator: exits {codes}:\n" + "\n".join(
+            f"rank {r}: {texts[r][-3000:]}" for r in range(2)))
+    if "Serving on" in texts[1]:
+        raise AssertionError("[multihost] the follower served HTTP")
+    if _files(copies[1]) != follower_files:
+        raise AssertionError(f"[multihost] the follower's directory gained files: "
+                             f"{sorted(set(_files(copies[1])) - set(follower_files))}")
+    counts = []
+    for r, text in enumerate(texts):
+        lines = [ln for ln in text.splitlines() if ln.startswith("[multihost-launches] ")]
+        if len(lines) != 1:
+            raise AssertionError(f"[multihost] rank {r} printed {len(lines)} launch lines")
+        counts.append(json.loads(lines[0].split(" ", 1)[1]))
+    if dev.type == "cuda" and not all(c["cuda"] and c["peak_gib"] > 0 for c in counts):
+        raise AssertionError(f"[multihost] both ranks should have held the card: {[(c['cuda'], c['peak_gib']) for c in counts]}")
+    launches = {n: counts[0]["launches"][n] + counts[1]["launches"][n] for n in PATH_KERNELS}
+    forms = {f: counts[0]["by_form"][f] + counts[1]["by_form"][f] for f in hs.GATHER_FORMS}
+    check_path_launches("[multihost serve]", dev, launches, [tuple(x) for c in counts for x in c["scans"]], forms)
+    t0 = time.perf_counter()
+    manager = get_index(f"tpu://{copies[0]}", **on_card)
+    try:
+        reopen_s = time.perf_counter() - t0
+        held = manager.get_index(name).assets
+        if held != n_assets + n_new:
+            raise AssertionError(f"[multihost] the coordinator's directory holds {held} assets, not {n_assets + n_new}")
+        for a in new_wire[:: max(1, n_new // 20)]:
+            if manager.get_asset(name, a["iscc_id"]).units != a["units"]:
+                raise AssertionError(f"[multihost] the reopened coordinator's directory lacks {a['iscc_id']}")
+    finally:
+        manager.close()
+    slog(f"[multihost] SIGTERM to the coordinator: both ranks exit 0 after {stop_s:.1f} s; the follower's directory "
+         f"gained no file; the coordinator's reopened here ({reopen_s:.3f} s) holds {held} assets. Launches of both "
+         f"ranks: {launches} (rank 0 {counts[0]['launches']}, rank 1 {counts[1]['launches']}); peak device memory "
+         f"{counts[0]['peak_gib']:.3f} / {counts[1]['peak_gib']:.3f} GiB, each rank's own CUDA context")
+    return launches
+
+
 # ------------------------------------------------- load from client processes
 
 
@@ -3952,10 +4516,16 @@ def main():
     parser.add_argument("--profile", action="store_true", help="also profile warm searches (device time by kernel)")
     parser.add_argument("--mesh-worker", nargs=6, metavar=("DIR", "RANK", "WORLD", "PORT", "DEVICE", "CHIPS"),
                         help="run one process of a [mesh] cluster (started by the [mesh] phase)")
+    parser.add_argument("--multihost-worker", nargs=5, metavar=("DIR", "RANK", "PORT", "CONTROL_PORT", "DEVICE"),
+                        help="run one rank of [multihost]'s engine cluster (started by the [multihost] phase)")
     args = parser.parse_args()
     if args.mesh_worker:
         data, rank, world, port, device, chips = args.mesh_worker
         mesh_worker(data, int(rank), int(world), int(port), device, int(chips))
+        return
+    if args.multihost_worker:
+        data, rank, port, ctrl, device = args.multihost_worker
+        multihost_worker(data, int(rank), int(port), int(ctrl), device)
         return
 
     t_start = time.perf_counter()
@@ -3979,8 +4549,11 @@ def main():
                 phase_profile(idx, batch, scan_kernel)
         phase_persist(rng, dev, idx, queries, tmp)
         t0 = time.perf_counter()
-        mesh_launches, mesh_kernel4, _ = phase_mesh(dev, idx, queries, oracle, tmp, profile=args.profile)
+        mesh_launches, mesh_kernel4, mesh_outs = phase_mesh(dev, idx, queries, oracle, tmp, profile=args.profile)
         log(f"[mesh] phase time {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mh_launches, mh_stats = phase_multihost(dev, idx, queries, oracle, tmp, args.seed, mesh_outs)
+        log(f"[multihost] engine cluster time {time.perf_counter() - t0:.1f} s")
         del idx, oracle
     # The config-3 path: the slice's searches and the [route] phase's 'auto' searches.
     by_path = {"config3": {name: slice_launches[name] + route_launches.get(name, 0) for name in PATH_KERNELS},
@@ -4006,6 +4579,10 @@ def main():
         t0 = time.perf_counter()
         phase_cli(rng, dev, tmp, truth)
         log(f"[cli] phase time {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        mh_serve_launches = phase_multihost_serve(rng, dev, tmp, truth, recorded)
+        by_path["multihost"] = {name: mh_launches[name] + mh_serve_launches[name] for name in PATH_KERNELS}
+        log(f"[multihost] serve() part time {time.perf_counter() - t0:.1f} s")
         del truth, recorded
         t0 = time.perf_counter()
         by_path["aggregator"] = phase_aggregator(rng, dev, tmp, seed=args.seed)
@@ -4033,15 +4610,18 @@ def main():
             entry["also_replaces"] = meta["also_replaces"]
         entry.update({"launches": launches[name], **stats[name]})
         if name in PATH_KERNELS:
-            # The search paths' launches: config 3 (phases 4-6), the simprint
-            # engine at config 4, the asset-level entry point, the REST server,
-            # scale-out and the aggregator's index; and the kernel at the
-            # simprint and product paths' shapes.
+            # The search paths' launches: config 3 (phases 4-6), the mesh, the
+            # simprint engine at config 4, the asset-level entry point, the
+            # REST server, scale-out, the multi-host cluster (both ranks of
+            # both its parts) and the aggregator's index; and the kernel at the
+            # simprint, product and multi-host paths' shapes.
             entry["launches_by_path"] = {path: counts[name] for path, counts in by_path.items()}
             entry["launches"] = sum(entry["launches_by_path"].values())
             entry["at_simprint_shapes"] = path_stats[name]
             if name in product_stats:
                 entry["at_product_shapes"] = product_stats[name]
+            if name in mh_stats:
+                entry["at_multihost_shapes"] = mh_stats[name]
         if name == "blockmax_mma_unpacked":
             entry["launches_by_path"] = twin_by_path
             entry["at_mesh_shapes"] = mesh_kernel4

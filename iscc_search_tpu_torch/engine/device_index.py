@@ -27,6 +27,11 @@ fixed-width index over 16-byte keys.
   shard runs the same per-partition scan on its own device, then the
   shards' candidates merge (:func:`~iscc_search_tpu_torch.parallel.merge.merge_topk`):
   on the lead device, and across processes through the mesh's process group.
+- Multi-host (:mod:`iscc_search_tpu_torch.parallel.service`): a settable
+  ``control_hook`` mirrors ``add``, ``add_packed``, ``remove`` and
+  ``search`` to the follower processes of a cluster; each public method
+  validates and normalizes its arguments, then goes through the hook to its
+  ``_*_impl``, which a follower calls directly, as in the JAX engine.
 - Persistence is the JAX engine's, file for file: sealed immutable segments
   of ``shard_size`` bytes (``seg-%08d.npz``, written once), a rewritable
   active segment and a validity bitmap under a fresh name on every save
@@ -38,9 +43,8 @@ fixed-width index over 16-byte keys.
   package loads in the other. ``path=None`` is an in-memory index that
   never saves.
 
-Not ported yet (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): the multi-host ``control_hook`` and ``scan_kernel="pallas"`` (the
-port has no Pallas and no XLA scan).
+Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md item):
+``scan_kernel="pallas"`` (the port has no Pallas and no XLA scan).
 """
 
 from __future__ import annotations
@@ -67,7 +71,6 @@ _CAP_QUANTUM = 65536  # partition capacity granularity above the floor
 
 logger = logging.getLogger(__name__)
 
-_TODO_CONTROL = "ROADMAP.md, 'Modules still to port': the multi-host control plane"
 _TODO_KNOBS = "ROADMAP.md, 'Modules still to port': knobs"
 
 SCAN_KERNELS = ("auto", "mma", "mma_small", "popc")
@@ -269,8 +272,12 @@ class PackedCodeIndex:
             if kinds != {self.device.type}:
                 raise ValueError(f"device={str(device)!r}, but the mesh's shards are on {sorted(kinds)}")
             self.device = self.mesh.devices[0]
-        # An in-memory index has no directory to save to (a follower of the
-        # JAX engine's multi-host service turns this off the same way).
+        # Multi-host SPMD hook (parallel/service.py): set on the coordinator's
+        # indexes to fan device-relevant ops out to follower processes; None
+        # everywhere else (single-process) and on follower replicas.
+        self.control_hook = None
+        # Followers never persist (the coordinator's directory is the truth);
+        # an in-memory index has no directory to save to.
         self.save_enabled = self.path is not None
         self._lock = threading.RLock()
 
@@ -356,16 +363,6 @@ class PackedCodeIndex:
         return self._key(key) in self._keymap
 
     @property
-    def control_hook(self):
-        """Multi-host operation hook: always None here (not ported yet)."""
-        return None
-
-    @control_hook.setter
-    def control_hook(self, hook):
-        if hook is not None:
-            raise NotImplementedError(f"the multi-host control hook is not ported yet ({_TODO_CONTROL})")
-
-    @property
     def _keymap(self):
         # type: () -> dict[bytes, int]
         """key -> row map, built lazily from the validity bitmap."""
@@ -413,6 +410,16 @@ class PackedCodeIndex:
         """
         if not keys:
             return
+        if self.control_hook is not None:
+            # Mirror the EXACT engine-level call on every cluster process so
+            # replicas append identical rows in identical order (bytes are
+            # pickle-friendly; ndarray vectors normalize to bytes first).
+            vectors = [self._vector_bytes(v) for v in vectors]
+            return self.control_hook("add", (list(keys), vectors), lambda: self._add_impl(keys, vectors))
+        return self._add_impl(keys, vectors)
+
+    def _add_impl(self, keys, vectors):
+        # type: (list, list[bytes]) -> None
         with self._lock:
             kbs = [self._key(k) for k in keys]
             packed, nlanes = pack_codes([self._vector_bytes(v) for v in vectors], self.max_lanes)
@@ -471,6 +478,15 @@ class PackedCodeIndex:
                 raise ValueError(f"nlanes must be (n,), got {nlanes.shape}")
         if int(nlanes.max(initial=0)) > packed.shape[1] or int(nlanes.min(initial=1)) < 1:
             raise ValueError("nlanes out of range")
+        if self.control_hook is not None:
+            return self.control_hook(
+                "add_packed", (keys, packed, nlanes), lambda: self._add_packed_impl(keys, packed, nlanes)
+            )
+        return self._add_packed_impl(keys, packed, nlanes)
+
+    def _add_packed_impl(self, keys, packed, nlanes):
+        # type: (np.ndarray, np.ndarray, np.ndarray) -> None
+        n = keys.shape[0]
         with self._lock:
             self._ensure_capacity(self._rows + n)
             start = self._rows
@@ -493,6 +509,12 @@ class PackedCodeIndex:
     def remove(self, keys):
         # type: (list) -> int
         """Tombstone keys; returns the number of keys actually removed."""
+        if self.control_hook is not None:
+            return self.control_hook("remove", (list(keys),), lambda: self._remove_impl(keys))
+        return self._remove_impl(keys)
+
+    def _remove_impl(self, keys):
+        # type: (list) -> int
         removed = 0
         with self._lock:
             keymap = self._keymap
@@ -553,6 +575,11 @@ class PackedCodeIndex:
                 for _ in query_bodies
             ]
             return empty if return_rows else [e[:2] for e in empty]
+        if self.control_hook is not None:
+            bodies = [self._vector_bytes(b) for b in query_bodies]
+            return self.control_hook(
+                "search", (bodies, count), lambda: self._search_impl(bodies, count, return_rows)
+            )
         return self._search_impl(query_bodies, count, return_rows)
 
     def save(self, wait=True):

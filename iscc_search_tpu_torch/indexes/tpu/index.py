@@ -2,10 +2,14 @@
 The index backend over the port's engines (port of
 ``iscc_search_tpu/indexes/tpu/index.py``, the flagship backend; module path
 and class name kept so a reader finds the counterpart). The code is the JAX
-package's but for the ``device`` argument and the multi-host control plane
-(a mesh across processes, ``follow``), which raises ``NotImplementedError``
-naming ROADMAP.md's queue-1 item "the multi-host control plane". A mesh in
-one process (``mesh_devices``, ``mesh_hosts``) serves.
+package's but for the ``device`` argument and the cluster it reads: the
+``torch.distributed`` world (:func:`~iscc_search_tpu_torch.parallel.mesh.process_count`,
+:func:`~iscc_search_tpu_torch.parallel.mesh.process_index`) in place of
+``jax.process_count()`` / ``jax.process_index()``. A mesh in one process
+(``mesh_devices``, ``mesh_hosts``) serves alone; under a world of several
+processes the 2-D mesh crosses them and the multi-host control plane
+(:mod:`iscc_search_tpu_torch.parallel.service`) serves the index: process 0
+hooks every NPHD engine, the others run :meth:`TpuIndex.follow`.
 
 Functional twin of the reference's usearch backend (UsearchIndex,
 iscc_search/indexes/usearch/index.py) re-architected for the device scan engine:
@@ -72,8 +76,6 @@ if TYPE_CHECKING:  # pragma: no cover
 
 logger = get_logger(__name__)
 
-_TODO_CONTROL = "ROADMAP.md, 'Modules still to port': the multi-host control plane"
-
 # HostStore database names
 DB_META = "metadata"
 DB_ASSETS = "assets"
@@ -121,7 +123,6 @@ class TpuIndex:
 
         self._opts = search_opts.override(options)
         self.device = resolve_device(device)
-        self._init_multihost()  # builds the mesh; a multi-process one raises before the directory is touched
         self.path = Path(path)
         self.path.mkdir(parents=True, exist_ok=True)
         self.max_dim = max_dim
@@ -134,11 +135,13 @@ class TpuIndex:
         self._closed = False
         self._write_lock = threading.RLock()
         self._batch_counter = 0
+        self._service = None  # multi-host control plane (set by _init_multihost)
 
         self.store = HostStore(self.path / "store")
         self._init_metadata(realm_id)
         self._load_nphd_indexes()
         self._load_simprint_indexes()
+        self._init_multihost()
 
     # ------------------------------------------------------------------ add
 
@@ -754,6 +757,14 @@ class TpuIndex:
         with self._write_lock:
             if self._closed:
                 return
+            if self._service is not None:
+                # Coordinator: release followers from their follow() loop
+                # before tearing down the engines they mirror; follower:
+                # close the channel (the coordinator handles a dead channel).
+                try:
+                    self._service.stop()
+                except Exception:  # pragma: no cover
+                    logger.exception("Failed to stop multihost control plane")
             for batcher in self._batchers.values():
                 try:
                     batcher.close()
@@ -814,6 +825,13 @@ class TpuIndex:
         deletes their segment dirs, which must not interleave with a
         concurrent add_assets batch (adds would land in an orphaned index).
         """
+        if self._service is not None:
+            # A rebuild swaps whole index objects; mirroring that through the
+            # op stream would desynchronize follower replicas mid-swap.
+            raise RuntimeError(
+                "rebuild is unsupported while serving multi-host: rebuild offline "
+                "(single process), redistribute the index directory, and restart the cluster"
+            )
         with self._write_lock:
             rebuilt_units = [ut for ut in unit_types if self._rebuild_nphd_index(ut)]
             rebuilt_sp = [st for st in simprint_types if self._rebuild_simprint_index(st)]
@@ -1033,23 +1051,65 @@ class TpuIndex:
 
     def _init_multihost(self):
         # type: () -> None
-        """Build the mesh. Under a ``torch.distributed`` world of several
-        processes the mesh would cross them, which needs the cluster control
-        plane (the JAX package's ``MultihostService``), not ported yet: it
-        raises, before the mesh's collectives."""
-        from iscc_search_tpu_torch.parallel.mesh import process_count
+        """
+        Stand up the cluster control plane when running in a
+        ``torch.distributed`` world of several processes with a 2-D mesh
+        (parallel/service.py design notes).
 
-        if process_count() > 1:
-            raise NotImplementedError(
-                f"a mesh across {process_count()} processes needs the multi-host control plane, "
-                f"which is not ported yet ({_TODO_CONTROL})"
+        Process 0 (coordinator) owns the product surface: it hooks every NPHD
+        engine so searches/mutations execute SPMD cluster-wide, and verifies
+        each follower replica matches its row state before serving. Follower
+        processes open their own index directory (a copy of the coordinator's,
+        or empty alongside an empty coordinator — NOT the same live directory;
+        the store is single-writer) and then run :meth:`follow`.
+        """
+        mesh = self._device_mesh()
+        if mesh is None or len(mesh.axis_names) != 2:
+            return
+        from iscc_search_tpu_torch.parallel import mesh as pmesh
+
+        if pmesh.process_count() <= 1:
+            return
+        from iscc_search_tpu_torch.parallel.service import MultihostService
+
+        self._service = MultihostService(
+            is_coordinator=pmesh.process_index() == 0,
+            n_followers=pmesh.process_count() - 1,
+            coordinator_host=self._opts.multihost_coordinator,
+            port=self._opts.multihost_control_port,
+        )
+        if self._service.is_coordinator:
+            for unit_type, nphd_index in self._nphd_indexes.items():
+                name = self._replica_name(unit_type)
+                self._service.hook(name, nphd_index)
+                self._service.check(name, nphd_index._rows, nphd_index._live)
+        else:
+            # Followers never persist: the coordinator's directory is truth.
+            for nphd_index in self._nphd_indexes.values():
+                nphd_index.save_enabled = False
+
+    def _replica_name(self, unit_type):
+        # type: (str) -> str
+        return f"{self.path.name}:{unit_type}"
+
+    def _resolve_replica(self, name):
+        # type: (str) -> DeviceNphdIndex
+        index_name, _, unit_type = name.partition(":")
+        if index_name != self.path.name:
+            raise ValueError(
+                f"control op addressed index '{index_name}' but this follower serves '{self.path.name}'"
             )
-        self._device_mesh()
+        return self._get_or_create_nphd_index(unit_type)
 
     def follow(self):
         # type: () -> None
-        """Follower loop of a multi-host cluster: not ported yet."""
-        raise NotImplementedError(f"the multi-host follower loop is not ported yet ({_TODO_CONTROL})")
+        """
+        Follower loop (multi-host): apply coordinator operations — joining
+        every SPMD search collective — until the coordinator stops.
+        """
+        if self._service is None or self._service.is_coordinator:
+            raise RuntimeError("follow() runs only on follower processes of a multi-host cluster")
+        self._service.follow(self._resolve_replica)
 
     def _new_nphd_index(self, unit_type, path=None):
         # type: (str, ...) -> DeviceNphdIndex
@@ -1077,6 +1137,14 @@ class TpuIndex:
         # type: (str) -> DeviceNphdIndex
         if unit_type not in self._nphd_indexes:
             nphd_index = self._new_nphd_index(unit_type)
+            if self._service is not None:
+                if self._service.is_coordinator:
+                    # Hook BEFORE first use: every device op on this index
+                    # must fan out from call one (followers auto-create their
+                    # replica through _resolve_replica on the first op).
+                    self._service.hook(self._replica_name(unit_type), nphd_index)
+                else:
+                    nphd_index.save_enabled = False
             self._nphd_indexes[unit_type] = nphd_index
             logger.debug(f"Created NPHD index for unit_type '{unit_type}'")
         return self._nphd_indexes[unit_type]

@@ -1,8 +1,9 @@
 """
 The multi-index manager over :class:`TpuIndex` (port of
 ``iscc_search_tpu/indexes/tpu/manager.py``; the code is the JAX package's but
-for the ``device`` argument, and the multi-host entries ``follow_index`` and
-``open_index`` are left out with the rest of the multi-host path).
+for the ``device`` argument). ``open_index`` and ``follow_index`` are the
+multi-host entries: the coordinator opens the served index before it
+serves, each follower runs its follower loop.
 
 Directory-per-index layout with a lock-guarded instance cache and
 per-component size accounting, functional twin of the reference's
@@ -128,6 +129,27 @@ class TpuIndexManager:
         if simprint_types is None:
             simprint_types = idx.tracked_simprint_types
         return idx.rebuild(unit_types, simprint_types)
+
+    def follow_index(self, name):
+        # type: (str) -> None
+        """
+        Multi-host follower entry: open index ``name`` (creating an empty
+        replica directory when absent — a fresh cluster starts empty on every
+        process) and run its follower loop until the coordinator stops.
+        """
+        common.validate_index_name(name)
+        self._get_or_load_index(name).follow()
+
+    def open_index(self, name):
+        # type: (str) -> TpuIndex
+        """Eagerly load (or create) index ``name``.
+
+        The multi-host coordinator calls this at serve startup: follower
+        processes connect to the control plane during TpuIndex construction,
+        so the coordinator must construct BEFORE traffic arrives, not lazily
+        on the first request."""
+        common.validate_index_name(name)
+        return self._get_or_load_index(name)
 
     def close(self):
         # type: () -> None

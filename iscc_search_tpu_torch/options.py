@@ -9,8 +9,10 @@ environment names; ``from_env()`` and ``override()`` as there, each value
 checked against the field's bounds (``ValueError`` where pydantic raises
 ``ValidationError``). Not ported: the fields only the JAX engine reads
 (``scan_chunk_rows``, ``compile_cache_dir``: kernels are cached by source
-hash under ``build/torch_kernels/``) and ``multihost_index`` (multi-host
-serving raises). One value differs: ``scan_kernel`` takes the port's phase-1
+hash under ``build/torch_kernels/``). ``distributed`` joins a
+``torch.distributed`` cluster (``ISCC_SEARCH_COORDINATOR``, ``_NUM_HOSTS``,
+``_HOST_ID``) where the JAX package calls ``jax.distributed.initialize()``.
+One value differs: ``scan_kernel`` takes the port's phase-1
 choices (``"auto"``, ``"mma"``, ``"mma_small"``, ``"popc"``;
 ``engine/device_index.py`` ``SCAN_KERNELS``) where the JAX package takes
 ``"auto"``, ``"pallas"`` and ``"xla"``. The default ``index_uri`` is the
@@ -143,6 +145,7 @@ class SearchOptions:
     search_batching: bool = True
     search_batching_window_ms: float = 0.0
     distributed: bool = False
+    multihost_index: str | None = None
     # Aggregator mode
     aggregator_network: str | None = None
     aggregator_hub_list_url: str | None = None

@@ -71,6 +71,15 @@ def process_count():
     return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
+def process_index():
+    # type: () -> int
+    """This process's rank in the default ``torch.distributed`` group, 0
+    without one (the counterpart of ``jax.process_index()``)."""
+    import torch.distributed as dist
+
+    return dist.get_rank() if dist.is_available() and dist.is_initialized() else 0
+
+
 def available_devices(device="cuda"):
     # type: (str | torch.device) -> list[torch.device] | None
     """This process's devices of ``device``'s type: every CUDA device, or

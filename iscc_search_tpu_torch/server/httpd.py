@@ -14,9 +14,13 @@ before it serves; the JAX package's opens each on its first request. In
 aggregator mode (``aggregator_network``) the
 transparency-log poller runs on a dedicated asyncio thread
 (``AggregatorRunner``, a copy), started after the socket is bound and
-stopped before the index is closed. Multi-host serving (``distributed``) is
-not ported and raises ``NotImplementedError`` naming its ROADMAP.md item
-("the multi-host control plane").
+stopped before the index is closed. Multi-host serving (``distributed``)
+joins a ``torch.distributed`` cluster through ``init_distributed()``
+(``ISCC_SEARCH_COORDINATOR``, ``_NUM_HOSTS``, ``_HOST_ID``): the process of
+rank 0 opens ``multihost_index`` before it binds and serves HTTP as the
+coordinator, every other process opens its own copy of the index and runs
+the follower loop (no HTTP), as the JAX package's ``serve()`` splits the
+roles of a ``jax.distributed`` cluster.
 """
 
 from __future__ import annotations
@@ -112,6 +116,33 @@ class AggregatorRunner:
                 )
 
 
+def _multihost_index_name(opts):
+    # type: (...) -> str | None
+    return opts.multihost_index or (opts.aggregator_index_name if opts.aggregator_mode else None)
+
+
+def _serve_follower(opts, device="cuda"):
+    # type: (..., str) -> None
+    """Non-zero process of a multi-host cluster: no HTTP — open the replica
+    and join the coordinator's SPMD search program until released."""
+    configure_logging(level=opts.log_level)
+    from iscc_search_tpu_torch.options import get_index
+
+    name = _multihost_index_name(opts)
+    if not name:
+        raise ValueError(
+            "multi-host follower needs ISCC_SEARCH_MULTIHOST_INDEX (the index this cluster serves)"
+        )
+    index = get_index(opts.index_uri, device=device)
+    if not hasattr(index, "follow_index"):
+        raise ValueError(f"backend {opts.index_uri!r} does not support multi-host serving (use tpu://)")
+    logger.info(f"Multi-host follower: serving index '{name}' (coordinator: {opts.multihost_coordinator})")
+    try:
+        index.follow_index(name)
+    finally:
+        index.close()
+
+
 def serve(opts=None, device="cuda"):
     # type: (..., str) -> None
     """Run the API server until interrupted (index lifecycle managed here).
@@ -124,9 +155,17 @@ def serve(opts=None, device="cuda"):
 
     opts = opts or search_opts
     if opts.distributed:
-        from iscc_search_tpu_torch.engine.device_index import _TODO_CONTROL
+        # Multi-host cluster (BASELINE config 5): join the torch.distributed
+        # world (ISCC_SEARCH_COORDINATOR / ISCC_SEARCH_NUM_HOSTS /
+        # ISCC_SEARCH_HOST_ID), then split roles: process 0 serves HTTP as
+        # the coordinator, the rest run the follower loop.
+        from iscc_search_tpu_torch.parallel import mesh as pmesh
+        from iscc_search_tpu_torch.parallel.distributed import init_distributed
 
-        raise NotImplementedError(f"multi-host serving (ISCC_SEARCH_DISTRIBUTED) is not ported: {_TODO_CONTROL}")
+        init_distributed()
+        if pmesh.process_index() > 0:
+            _serve_follower(opts, device=device)
+            return
     if opts.workers and opts.workers > 1:
         # Multi-process scale-out: SO_REUSEPORT HTTP workers + this process
         # as the engine (single writer). Aggregator mode stays single-process
@@ -137,6 +176,16 @@ def serve(opts=None, device="cuda"):
         return
     configure_logging(level=opts.log_level)
     index = get_index(opts.index_uri, device=device)
+    if opts.distributed:
+        # Coordinator must open the served index BEFORE traffic: followers
+        # connect to its control plane during TpuIndex construction.
+        name = _multihost_index_name(opts)
+        if not name or not hasattr(index, "open_index"):
+            index.close()
+            raise ValueError(
+                "multi-host serving needs ISCC_SEARCH_MULTIHOST_INDEX and a tpu:// backend"
+            )
+        index.open_index(name)
     app = create_app(index=index, opts=opts)
 
     # Bind the socket FIRST: if the port is taken, nothing else must have

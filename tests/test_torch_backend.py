@@ -262,9 +262,9 @@ def test_rebuild_and_reopen_answer_the_same(tmp_path, assets):
 
 def test_what_is_not_ported_raises(tmp_path, assets):
     """A mesh in one process serves: ``mesh_devices=2`` (1-D) and
-    ``mesh_hosts=2`` (2-D, positional) answer as without a mesh. The
-    follower loop, and a mesh across processes
-    (``tests/test_torch_engine_sharded.py``), name the control plane."""
+    ``mesh_hosts=2`` (2-D, positional) answer as without a mesh. ``follow()``
+    outside a cluster raises the JAX package's ``RuntimeError`` (the control
+    plane: ``tests/test_torch_multihost.py``)."""
     plain = TpuIndex(tmp_path / "one", device="cpu", search_batching=False)
     plain.add_assets([schema.IsccEntry(**wire(a)) for a in assets])
     want = _answers(plain, schema.IsccQuery, assets)
@@ -274,7 +274,7 @@ def test_what_is_not_ported_raises(tmp_path, assets):
         assert all(part.mesh is not None and part.mesh.size == 2 for part in meshed._nphd_indexes.values())
         assert _answers(meshed, schema.IsccQuery, assets) == want
         meshed.close()
-    with pytest.raises(NotImplementedError, match="follower.*the multi-host control plane"):
+    with pytest.raises(RuntimeError, match="follow\\(\\) runs only on follower processes of a multi-host cluster"):
         plain.follow()
     plain.close()
 

@@ -316,8 +316,10 @@ def test_empty_index_and_empty_batch():
 def test_unported_features_name_their_roadmap_item(tmp_path):
     """A mesh in one process is ported (``tests/test_torch_engine_sharded.py``):
     a mesh of two CPU shards is kept, one of one shard is no mesh, and a mesh
-    on another device type than ``device`` raises. The control hook and
-    ``scan_kernel="pallas"`` still name their ROADMAP.md items."""
+    on another device type than ``device`` raises. ``scan_kernel="pallas"``
+    still names its ROADMAP.md item; the control hook is settable and
+    mirrors each mutation and search (the JAX engine's op tuples) before the
+    local copy applies."""
     from iscc_search_tpu_torch.parallel import make_mesh
 
     assert DeviceNphdIndex(mesh=make_mesh(2, device="cpu"), device="cpu").mesh.size == 2
@@ -328,9 +330,21 @@ def test_unported_features_name_their_roadmap_item(tmp_path):
         DeviceNphdIndex(scan_kernel="pallas", device="cpu")
     idx = DeviceNphdIndex(tmp_path / "new", device="cpu")
     assert idx.control_hook is None
-    idx.control_hook = None
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*the multi-host control plane"):
-        idx.control_hook = lambda *a: None
+    ops = []
+
+    def hook(op, args, local):
+        ops.append((op, args))
+        return local()
+
+    idx.control_hook = hook
+    idx.add([1, 2], [bytes(range(8)), np.arange(16, dtype=np.uint8)])
+    idx.add_packed(np.arange(8, dtype=np.uint8).reshape(1, 8), np.ones((1, 2), np.uint32), 2)
+    assert idx.remove([2, 99]) == 1
+    assert idx.search_one(bytes(range(8)), 1) == {1: 1.0}
+    assert [op for op, _ in ops] == ["add", "add_packed", "remove", "search"]
+    assert ops[0][1] == ([1, 2], [bytes(range(8)), bytes(range(16))])  # vectors normalized to bytes
+    assert ops[2][1] == ([2, 99],) and ops[3][1] == ([bytes(range(8))], 1)
+    assert (idx._rows, idx._live) == (3, 2)
     idx.close()
 
 

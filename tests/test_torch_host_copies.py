@@ -5,7 +5,8 @@ keeps its own copy of each host module it needs. Every function and method
 of a copy compiles to the same bytecode, names and constants as its original,
 with the package name ``iscc_search_tpu_torch`` read as ``iscc_search_tpu``
 and docstrings left out. Where the port changes a module on purpose (the
-``device`` argument, the store's build, the multi-host paths that raise), the
+``device`` argument, the store's build, the ``torch.distributed`` world in
+place of JAX's process count and index), the
 functions that differ are listed here by name, and every other function is
 still held to its original.
 """
@@ -74,6 +75,7 @@ COPIES = {
     "server.auth": ((), (), ()),
     "server.app": ((), (), ()),
     "server.pooled": ((), (), ()),
+    "parallel.service": ((), (), ()),
     # A dataclass in place of the pydantic model (its validation in
     # __post_init__, its default directory without platformdirs); the
     # factories take the device argument.
@@ -85,9 +87,11 @@ COPIES = {
     ),
     # The component schemas come from a data file, not from pydantic.
     "server.openapi": (("build_openapi",), (), ()),
-    # The device argument (scale-out is dispatched with it); multi-host
-    # serving raises.
-    "server.httpd": (("serve",), ("_multihost_index_name", "_serve_follower"), ()),
+    # serve(): the device argument (scale-out and the follower are dispatched
+    # with it), init_distributed() and the world's rank in place of
+    # jax.distributed.initialize() and jax.process_index();
+    # _serve_follower(): the device argument to get_index.
+    "server.httpd": (("serve", "_serve_follower"), (), ()),
     "aggregator.tlog": ((), (), ()),
     "aggregator.entry": ((), (), ()),
     "aggregator.cursors": ((), (), ()),
@@ -128,18 +132,20 @@ COPIES = {
     "store.kv": (("_load_library",), ("_lib_is_fresh", "_build_library"), ("build_key", "_build_library")),
     # The device argument.
     "engine.simprint": (("SimprintEngine.__init__",), (), ()),
-    # The device argument; the mesh by the port's parallel/*; a mesh across
-    # processes and the multi-host control plane raise.
     "indexes.tpu.index": (
-        ("TpuIndex.__init__", "TpuIndex.close", "TpuIndex.rebuild", "TpuIndex._device_mesh", "TpuIndex.follow",
-         "TpuIndex._init_multihost", "TpuIndex._new_nphd_index", "TpuIndex._new_simprint_index",
-         "TpuIndex._get_or_create_nphd_index"),
-        ("TpuIndex._replica_name", "TpuIndex._resolve_replica"),
+        # The device argument (the index's and its engines').
+        ("TpuIndex.__init__", "TpuIndex._new_nphd_index", "TpuIndex._new_simprint_index",
+         # The mesh by the port's parallel/* on the index's device.
+         "TpuIndex._device_mesh",
+         # The torch.distributed world's size and rank in place of jax.process_count() and jax.process_index().
+         "TpuIndex._init_multihost"),
+        (),
         (),
     ),
+    # The device argument.
     "indexes.tpu.manager": (
         ("TpuIndexManager.__init__", "TpuIndexManager.create_index", "TpuIndexManager._get_or_load_index"),
-        ("TpuIndexManager.follow_index", "TpuIndexManager.open_index"),
+        (),
         (),
     ),
 }

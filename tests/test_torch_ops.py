@@ -686,6 +686,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "iscc_search_tpu_torch.parallel.pallas_sharded",
         "iscc_search_tpu_torch.parallel.hier",
         "iscc_search_tpu_torch.parallel.distributed",
+        "iscc_search_tpu_torch.parallel.service",
     } <= set(names)
 
 
@@ -758,8 +759,8 @@ def test_chip_smoke_measures_both_sides_of_every_auto_threshold():
 
 def test_chip_smoke_simprint_and_product_phases_run_on_the_cpu(tmp_path, request):
     """The asset-level phases of the smoke run, end to end at a tiny size on
-    the CPU (the wrappers' plain versions): every check they make on the
-    card passes here too. Their full sizes: BASELINE config 4's 100,000,000
+    the CPU (the wrappers' plain versions), [multihost]'s distributed
+    ``serve()`` last: every check they make on the card passes here too. Their full sizes: BASELINE config 4's 100,000,000
     chunk rows, the 20,000-asset product cell, and the server's 1,000 assets
     added over HTTP."""
     from iscc_search_tpu_torch.engine import device_index as di
@@ -795,3 +796,6 @@ def test_chip_smoke_simprint_and_product_phases_run_on_the_cpu(tmp_path, request
     splits = dict(mod.phase_cli(rng, dev, tmp_path, truth, n_assets=12, n_sp=12))
     assert {"open index", "search_assets", "import iscc_search_tpu_torch.cli", "import torch"} <= set(
         splits["search by code"]) and mod.CLI_ASSETS == 1000
+    # [multihost] (b): serve() in distributed mode, two gloo ranks on their copies of the product index.
+    launches = mod.phase_multihost_serve(rng, dev, tmp_path, truth, recorded, n_new=10, n_sp=12, clients=2, timeout=120)
+    assert set(launches) == set(mod.PATH_KERNELS) and mod.MULTIHOST_NEW_ASSETS == 200

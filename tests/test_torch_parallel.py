@@ -24,8 +24,8 @@ every wrapper takes its plain version.
   ``test_make_mesh_defaults_to_all_devices`` (they count ``jax.devices()``:
   ``test_default_meshes``), and ``test_multihost.py``'s two slow
   multi-process cases (the two gloo processes of
-  ``tests/test_torch_engine_sharded.py`` and the control plane's next
-  slice).
+  ``tests/test_torch_engine_sharded.py``, and the product cluster of
+  ``tests/test_torch_multihost.py``).
 """
 
 from __future__ import annotations

@@ -13,8 +13,10 @@
 - ``serve()`` in a subprocess on ``memory://`` and ``kv://`` answers, then
   drains and exits 0 on SIGTERM (every thread's stack in the failure
   message if it has not exited 60 s later); ``tpu://`` with
-  ``device="cpu"`` too. Multi-host serving raises ``NotImplementedError``
-  (scale-out workers: ``tests/test_torch_scaleout.py``; aggregator mode:
+  ``device="cpu"`` too. Multi-host serving without ``multihost_index`` or
+  a ``tpu://`` backend raises the JAX package's ``ValueError`` (the
+  distributed ``serve()``: ``tests/test_torch_multihost.py``; scale-out
+  workers: ``tests/test_torch_scaleout.py``; aggregator mode:
   ``tests/test_torch_aggregator.py``); no card with the default device
   raises.
 """
@@ -422,12 +424,17 @@ def test_serve_answers_and_drains_on_sigterm(scheme, tmp_path):
 
 
 @pytest.mark.parametrize("update,item", [
-    ({"distributed": True}, "ROADMAP.md, 'Modules still to port': the multi-host control plane"),
-    ({"distributed": True, "workers": 2}, "ROADMAP.md, 'Modules still to port': the multi-host control plane"),
+    ({"distributed": True}, "multi-host serving needs ISCC_SEARCH_MULTIHOST_INDEX and a tpu:// backend"),
+    ({"distributed": True, "multihost_index": "data"}, "multi-host serving needs ISCC_SEARCH_MULTIHOST_INDEX and a tpu:// backend"),
 ])
-def test_serve_refuses_what_is_not_ported(update, item):
-    opts = SearchOptions(index_uri="memory://").override(update)
-    with pytest.raises(NotImplementedError, match=item):
+def test_serve_refuses_what_is_not_ported(update, item, monkeypatch):
+    """Outside a cluster ``serve()`` is the coordinator (rank 0): it refuses
+    without ``multihost_index`` or a backend that can serve one, as the JAX
+    package's does, before it binds."""
+    for name in ("ISCC_SEARCH_COORDINATOR", "ISCC_SEARCH_NUM_HOSTS", "ISCC_SEARCH_HOST_ID"):
+        monkeypatch.delenv(name, raising=False)
+    opts = SearchOptions(index_uri="memory://", host="127.0.0.1", port=0).override(update)
+    with pytest.raises(ValueError, match=item):
         httpd.serve(opts)
 
 
