@@ -79,16 +79,29 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    warm-search seconds and the directory's bytes are printed. Then the
    config-3 index of phases 4-6 is saved, closed and opened anew, and must
    answer as before;
+   knobs   — the engine's scan knobs on config 3's rows (indexes made by
+   ``from_arrays`` from the slice's host arrays, no second ingest), one
+   device: ``scan_kernel="xla"`` at Q=512, 32 and 1 (k=10) and limit 100
+   (Q=32), ``"xla"`` with ``recall_target=0.9`` at Q=32, ``"pallas"`` and
+   ``"auto"`` with ``recall_target=0.9`` at Q=512: each search's warm
+   median of 5 after a first call, the device memory, the launches (every
+   route a kernel route: exactly the kernels ``auto_phase1`` names), every
+   answer equal to ``"auto"``'s by score multiset and brute force, no
+   removed key. Their launches are ``launches_by_path["knobs"]``;
    mesh    — config 3's rows (the slice's index) row-sharded over 4 shards
    of the card (``make_mesh(devices=[dev] * 4)``, a power of two per
    shard): ``DeviceNphdIndex(mesh=...)`` at Q=512, 32 and 1 (k=10) and at
    limit 100 (Q=32) against the single-device index (score multisets),
    brute force (every returned row's score, the sampled top-10s, no removed
-   key) and with each scan on the kernel ``auto_phase1`` names; the
-   int8-twin route per shard (``sharded_pallas_topk``, called directly:
-   TPU kernel 4, which no search request reaches) ``torch.equal`` to the
-   sharded scan, and kernel 4 to its plain version at each partition's
-   shard; warm ms beside the single device's. Then, one after the other,
+   key) and with each scan on the kernel ``auto_phase1`` names; the same
+   searches under ``scan_kernel="pallas"`` (the int8 twin per shard, its
+   build seconds, timed inside the index's first search, and bytes
+   printed: every partition scan through ``sharded_pallas_topk``, TPU
+   kernel 4 launched once per shard by each), and one ``"xla"`` search at
+   Q=32 (the kernel route per shard), held the same way; the int8-twin
+   route per shard called directly on the ``"pallas"`` index's twins
+   ``torch.equal`` to the sharded scan, and kernel 4 to its plain version
+   at each partition's shard; warm ms beside the single device's. Then, one after the other,
    two clusters in subprocesses (``--mesh-worker``): 2 processes x 2
    shards joined by gloo and one process of 4 shards in a one-rank NCCL
    group, each uploading only its own row block, running ``hier_pm1_topk``
@@ -237,14 +250,15 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    by a record's units at limit 10 return it at score 1.0 (their launches:
    ``launches_by_path["aggregator"]``).
 
-``[mesh]``, ``[multihost]`` and phases 9-12 and 14 run after phase 7 and set
-the launch counts to 0 just before they drive their path and read them just
-after (``[multihost]``'s rank processes count from their start; phase 10's
+``[knobs]``, ``[mesh]``, ``[multihost]`` and phases 9-12 and 14 run after
+phase 7 and set the launch counts to 0 just before they drive their path and
+read them just after (``[multihost]``'s rank processes count from their start; phase 10's
 kernel-against-plain launches are not counted; phases 11 and 12 count their
 HTTP requests alone, phase 14 its searches of the aggregator's index); the
-JSON summary's ``launches`` of the path kernels is the sum over the eight
+JSON summary's ``launches`` of the path kernels is the sum over the nine
 search paths, ``launches_by_path`` splits it (for ``blockmax_mma_unpacked``:
-the twin phase and the mesh path), and ``at_simprint_shapes``,
+the twin phase and the mesh path, whose ``"pallas"`` searches and direct
+calls ``mesh_launches_by_source`` splits), and ``at_simprint_shapes``,
 ``at_product_shapes`` and ``at_multihost_shapes`` hold phases 9 and 10's and
 [multihost]'s kernel-against-plain numbers, one entry per shape (for
 ``gather_rescore`` the routed form's, with both forms' times).
@@ -326,7 +340,7 @@ from iscc_search_tpu_torch.ops.packing import pack_codes
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, prepare_queries, query_prefix, topk_blocks_hier
 from iscc_search_tpu_torch.parallel import hier_pm1_topk, make_mesh, make_mesh_2d
 from iscc_search_tpu_torch.parallel.distributed import init_distributed
-from iscc_search_tpu_torch.parallel.pallas_sharded import shard_unpacked_db, sharded_pallas_topk
+from iscc_search_tpu_torch.parallel.pallas_sharded import sharded_pallas_topk
 from iscc_search_tpu_torch.parallel.pm1_sharded import shard_pm1_database
 from iscc_search_tpu_torch import options as options_mod
 from iscc_search_tpu_torch.options import SearchOptions, get_index
@@ -364,6 +378,14 @@ MULTIHOST_TIMEOUT_S = 480  # [multihost] (a): both rank processes, start to exit
 MULTIHOST_NEW_ASSETS = 200  # [multihost] (b): assets added over HTTP to the distributed serve()
 MULTIHOST_SERVE_TIMEOUT_S = 600  # [multihost] (b): both serve() processes, start to exit
 MESH_ARRAYS = ("keys", "codes", "nlanes", "valid", "q_codes", "q_lanes", "pm1_packed", "pm1_valid")
+# [knobs]: (scan_kernel, recall_target, searches as (Q, count)) on config 3's rows, one device.
+KNOB_ROUTES = (
+    ("xla", None, ((N_QUERIES, K), (32, K), (1, K), (32, MESH_LIMIT))),
+    ("xla", 0.9, ((32, K),)),
+    ("pallas", None, ((N_QUERIES, K),)),
+    ("auto", 0.9, ((N_QUERIES, K),)),
+)
+KNOB_REPS = 5  # warm searches per route and batch after a first call
 SCORE_ATOL = 1e-6  # 0.5 + dot*q_scale vs 1 - ham/min_bits: a few f32 ulps near 1.0
 
 KERNELS = {
@@ -451,6 +473,7 @@ BF16_OPS_S = 989e12  # dense bf16 tensor-core peak: the floor of the kernel-8 va
 POPC_PER_CLOCK_SM = 16  # CUDA C++ Programming Guide, compute capability 9.0
 CARD = {}  # filled by phase_device: name and power limit, SMs and maximum SM clock
 PATH_FORMS = {}  # path label -> gather_rescore calls by form, read beside its launches
+TWIN_LAUNCHES = {}  # blockmax_mma_unpacked (kernel 4) launches by where they came from
 
 
 def log(msg):
@@ -1237,6 +1260,79 @@ def check_sharded(label, keys, scores, want_scores, q_codes, q_lanes, host):
         raise AssertionError(f"{label}: returned rows do not carry their brute-force scores")
 
 
+def phase_knobs(dev, single, queries, oracle, routes=KNOB_ROUTES, reps=KNOB_REPS):
+    """The engine's scan knobs on config 3's rows, one device: for each
+    (scan_kernel, recall_target) of ``routes`` an index made by
+    ``from_arrays`` from ``single``'s host arrays (no second ingest), its
+    partitions uploaded by a first search, then each search's first call
+    and ``reps`` warm calls with the counts set to 0 just before and read
+    just after. Every route is a kernel route and must launch exactly the
+    kernels ``auto_phase1`` names, once per partition scan. Every answer
+    equals ``single``'s (``"auto"``) by score multiset, carries brute-force
+    scores and holds no removed key. Returns the launches."""
+    rows = single._rows
+    host = {"keys": single._keys[:rows], "codes": single._codes[:rows], "nlanes": single._nlanes[:rows],
+            "valid": single._valid[:rows]}
+    q_codes, q_lanes = pack_codes(queries)
+    q_rows, valid, ref_np, top_ref, sample = oracle
+    searches = {search for _, _, batch in routes for search in batch}
+    want = {(nq, count): single.search(queries[:nq], count) for nq, count in sorted(searches)}
+    launches = dict.fromkeys(PATH_KERNELS, 0)
+    for scan_kernel, recall, batch in routes:
+        label = f"[knobs] scan_kernel={scan_kernel!r}" + (f" recall_target={recall}" if recall else "")
+        sync(dev)
+        t0 = time.perf_counter()
+        idx = DeviceNphdIndex.from_arrays(*(host[n] for n in ("keys", "codes", "nlanes", "valid")), device=dev,
+                                          scan_kernel=scan_kernel, recall_target=recall)
+        idx.search(queries[:1], K)
+        sync(dev)
+        log(f"{label}: from_arrays + first search (uploads the partitions) {time.perf_counter() - t0:.3f} s; "
+            f"device memory {device_memory(dev)} [{CARD.get('smi', 'cpu')}]")
+        n_parts = len(idx._partitions)
+        for nq, count in batch:
+            reset_launches()
+            hs.blockmax_mma_unpacked.launches = 0
+            scans, stop = spy_routes()
+            try:
+                t0 = time.perf_counter()
+                res = idx.search(queries[:nq], count)
+                first_s = time.perf_counter() - t0
+                times = []
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    idx.search(queries[:nq], count)
+                    times.append(time.perf_counter() - t0)
+            finally:
+                stop()
+            got = read_launches()
+            calls = (reps + 1) * n_parts
+            if len(scans) != calls or hs.blockmax_mma_unpacked.launches:
+                raise AssertionError(f"{label} Q={nq}: {len(scans)} kernel scans of {calls} partition scans, "
+                                     f"blockmax_mma_unpacked launched {hs.blockmax_mma_unpacked.launches} times")
+            # Its label keys launches_by_form in the JSON summary (brackets stripped).
+            recall_tag = f" recall_target={recall}" if recall else ""
+            check_path_launches(f"[knobs {scan_kernel}{recall_tag} Q={nq}]", dev, got, scans)
+            for name in PATH_KERNELS:
+                launches[name] += got[name]
+            keys, scores = padded_results(res, count)
+            check_sharded(f"{label} Q={nq} limit {count}", keys, scores, padded_results(want[nq, count], count)[1],
+                          q_codes[:nq], q_lanes[:nq], host)
+            if count == K:
+                part = sample < nq
+                check_results(f"{label} Q={nq}", res, q_rows[:nq], valid, ref_np[part], top_ref[part], sample[part])
+            med = statistics.median(times)
+            log(f"{label} Q={nq} limit {count}: warm median {med * 1e3:.3f} ms of {reps} (min "
+                f"{min(times) * 1e3:.3f}, max {max(times) * 1e3:.3f}; first call {first_s * 1e3:.3f} ms), "
+                f"{nq / med:.1f} QPS; launches {got}; equal to 'auto' by score multiset and brute force "
+                f"[{CARD.get('smi', 'cpu')}]")
+        log(f"{label}: device memory {device_memory(dev)} [{CARD.get('smi', 'cpu')}]")
+        idx.close()
+        del idx
+    log(f"[knobs] every route's answers equal scan_kernel='auto''s; every route took the kernels auto_phase1 names, "
+        f"launched {launches}")
+    return launches
+
+
 def mesh_worker(data_dir, rank, world, port, device, chips):
     """One process of a [mesh] cluster (``--mesh-worker``): joins the
     ``torch.distributed`` group (the backend that ``init_distributed``
@@ -1331,44 +1427,104 @@ def phase_mesh(dev, single, queries, oracle, tmp, shards=MESH_SHARDS, chips=MESH
     (data / "params.json").write_text(json.dumps({"chunk": chunk, "searches": searches, "reps": reps}))
 
     mesh = make_mesh(devices=[dev] * shards)
+    arrays_of = [host[n] for n in ("keys", "codes", "nlanes", "valid")]
     t0 = time.perf_counter()
-    idx = DeviceNphdIndex.from_arrays(*(host[n] for n in ("keys", "codes", "nlanes", "valid")), device=dev, mesh=mesh)
+    idx = DeviceNphdIndex.from_arrays(*arrays_of, device=dev, mesh=mesh)
     idx.search(queries[:1], K)
     sync(dev)
     log(f"[mesh] {mesh}: from_arrays + first search (builds the sharded partitions): "
         f"{time.perf_counter() - t0:.3f} s; capacity per lane count "
         f"{ {lanes: p.cap for lanes, p in sorted(idx._partitions.items())} } "
         f"(a power of two per shard); device memory {device_memory(dev)}")
+    parts = idx._sync_device()
+    # The 'pallas' index builds its twins in its first search's sync: their
+    # build is timed there, each shard_unpacked_db call between two syncs.
+    twin_s, build = [], device_index.shard_unpacked_db
 
-    # The path, counted: the sharded searches, then the int8-twin route per shard.
+    def timed_build(*args):
+        sync(dev)
+        t0 = time.perf_counter()
+        twins = build(*args)
+        sync(dev)
+        twin_s.append(time.perf_counter() - t0)
+        return twins
+
+    t0 = time.perf_counter()
+    device_index.shard_unpacked_db = timed_build
+    try:
+        pidx = DeviceNphdIndex.from_arrays(*arrays_of, device=dev, mesh=mesh, scan_kernel="pallas")
+        pidx.search(queries[:1], K)
+    finally:
+        device_index.shard_unpacked_db = build
+    sync(dev)
+    pidx_s = time.perf_counter() - t0
+    pparts = pidx._partitions
+    if any(p.unpacked_dev is None for p in pparts.values()) or len(twin_s) != len(pparts):
+        raise AssertionError("[mesh] scan_kernel='pallas': a partition lacks its int8 twin per shard")
+    twin_bytes = sum(t.numel() for p in pparts.values() for t in p.unpacked_dev)
+    log(f"[mesh] int8 twin per shard (shard_unpacked_db) of all {len(pparts)} partitions: {sum(twin_s):.4f} s, "
+        f"{twin_bytes / 1e9:.3f} GB ({twin_bytes} bytes = rows x nbits); scan_kernel='pallas' mesh index: "
+        f"from_arrays + first search (shards and twins) {pidx_s:.3f} s; device memory {device_memory(dev)} "
+        f"[{CARD.get('smi', 'cpu')}]")
+    xidx = DeviceNphdIndex.from_arrays(*arrays_of, device=dev, mesh=mesh, scan_kernel="xla")
+    xidx.search(queries[:1], K)
+
+    # The path, counted: the sharded searches ('auto', then 'pallas': kernel 4
+    # from the twin per shard on every search), one 'xla' search (the kernel
+    # route per shard), then the int8-twin route per shard called directly.
     reset_launches()
     hs.blockmax_mma_unpacked.launches = 0
     scans, stop = spy_routes()
-    got, times = {}, {}
+    got, times, got_p, times_p = {}, {}, {}, {}
     try:
         for nq, count in searches:
             res = idx.search(queries[:nq], count)
             got[nq, count] = res
             if count == K:
                 times[nq] = warm_searches(idx, queries[:nq], reps)[1]
+        twin_calls, stop_calls = spy_calls(("sharded_pallas_topk",))
+        try:
+            n_auto = len(scans)
+            for nq, count in searches:
+                got_p[nq, count] = pidx.search(queries[:nq], count)
+                if count == K:
+                    times_p[nq] = warm_searches(pidx, queries[:nq], reps)[1]
+            twin_searches = hs.blockmax_mma_unpacked.launches
+            n_pallas = len(scans)
+            got_x = xidx.search(queries[: qs[1]], K)
+        finally:
+            stop_calls()
     finally:
         stop()
+    searched = sum(1 + (reps if count == K else 0) for _, count in searches)
+    if twin_calls["sharded_pallas_topk"] != searched * len(pparts) or n_pallas != n_auto:
+        raise AssertionError(f"[mesh] scan_kernel='pallas': {twin_calls['sharded_pallas_topk']} calls of "
+                             f"sharded_pallas_topk and {n_pallas - n_auto} other scans, expected every partition "
+                             f"scan ({searched * len(pparts)}) through sharded_pallas_topk")
+    if len(scans) - n_pallas != len(parts) * shards or hs.blockmax_mma_unpacked.launches != twin_searches:
+        raise AssertionError(f"[mesh] scan_kernel='xla': {len(scans) - n_pallas} kernel scans, expected one per "
+                             f"shard and partition ({len(parts) * shards}), and no twin")
+    TWIN_LAUNCHES["mesh searches"] = twin_searches
+    if dev.type == "cuda" and TWIN_LAUNCHES["mesh searches"] != searched * len(pparts) * shards:
+        raise AssertionError(f"[mesh] the 'pallas' searches launched blockmax_mma_unpacked "
+                             f"{TWIN_LAUNCHES['mesh searches']} times, not once per shard and partition scan")
+    log(f"[mesh] scan_kernel='pallas': {searched} searches, every partition scan through sharded_pallas_topk, "
+        f"blockmax_mma_unpacked launched {TWIN_LAUNCHES['mesh searches']} times by them; scan_kernel='xla' "
+        f"(Q={qs[1]}): the kernel route per shard on every partition")
     q_packed = torch.from_numpy(q_codes.view(np.int32)).to(dev)
     q_lanes_dev = torch.from_numpy(q_lanes).to(dev)
-    parts = idx._sync_device()
     twin_out, kernel4 = {}, []
     for lanes, p in sorted(parts.items()):
-        nbits, per_shard = lanes * 32, p.cap // shards
+        nbits, per_shard, pp = lanes * 32, p.cap // shards, pparts[lanes]
         k = min(_pow2ceil(K), per_shard)
         min_lanes, q_scale = query_prefix(q_lanes_dev, nbits)
-        twins = shard_unpacked_db(mesh, p.packed_dev, nbits)
-        twin_out[lanes] = sharded_pallas_topk(mesh, q_packed, min_lanes, q_scale, p.packed_dev, twins, p.valid_dev,
-                                              k, nbits, merge_k=min(_pow2ceil(K), k * shards))
+        twin_out[lanes] = sharded_pallas_topk(mesh, q_packed, min_lanes, q_scale, pp.packed_dev, pp.unpacked_dev,
+                                              pp.valid_dev, k, nbits, merge_k=min(_pow2ceil(K), k * shards))
         with uncounted():
             want = idx._sharded_scan(q_packed, q_lanes_dev, p.packed_dev, p.valid_dev, k, lanes, K, "mma")
             if not all(torch.equal(g, w) for g, w in zip(twin_out[lanes], want)):
                 raise AssertionError(f"[mesh] {nbits}-bit: sharded_pallas_topk differs from the sharded engine scan")
-            call = (q_packed, min_lanes, q_scale, twins[0], p.valid_dev[0])
+            call = (q_packed, min_lanes, q_scale, pp.unpacked_dev[0], pp.valid_dev[0])
             bm, plain = hs.blockmax_mma_unpacked(*call), hs.blockmax_unpacked_plain(*call)
             if not torch.equal(bm, plain):
                 raise AssertionError(f"[mesh] {nbits}-bit shard: blockmax_mma_unpacked differs from its plain version")
@@ -1379,11 +1535,12 @@ def phase_mesh(dev, single, queries, oracle, tmp, shards=MESH_SHARDS, chips=MESH
                             "ms": time_ms(lambda: hs.blockmax_mma_unpacked(*call), dev, 5),
                             "plain_ms": time_ms(lambda: hs.blockmax_unpacked_plain(*call), dev, 2),
                             "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": float((bm - plain).abs().max())})
-        del twins
     sync(dev)
     launches = check_path_launches("[mesh]", dev, read_launches(), scans)
     launches["blockmax_mma_unpacked"] = hs.blockmax_mma_unpacked.launches
-    log(f"[mesh] launches of the path (sharded searches + the int8-twin route per shard): {launches}")
+    TWIN_LAUNCHES["mesh direct calls"] = launches["blockmax_mma_unpacked"] - TWIN_LAUNCHES["mesh searches"]
+    log(f"[mesh] launches of the path (sharded searches under 'auto' and 'pallas' + the int8-twin route per shard "
+        f"called directly): {launches}")
     if dev.type == "cuda" and min(launches.values()) <= 0:
         raise AssertionError(f"[mesh] a kernel of the path was never launched: {launches}")
     for e in kernel4:
@@ -1393,23 +1550,31 @@ def phase_mesh(dev, single, queries, oracle, tmp, shards=MESH_SHARDS, chips=MESH
 
     # Against the single-device index and brute force.
     q_rows, valid, ref_np, top_ref, sample = oracle
-    for (nq, count), res in got.items():
+    answers = [("auto", nq, count, res) for (nq, count), res in got.items()]
+    answers += [("pallas", nq, count, res) for (nq, count), res in got_p.items()] + [("xla", qs[1], K, got_x)]
+    for scan_kernel, nq, count, res in answers:
+        label = f"[mesh] scan_kernel={scan_kernel!r} Q={nq} limit {count}"
         keys, scores = padded_results(res, count)
         want_keys, want_scores = padded_results(single.search(queries[:nq], count), count)
-        check_sharded(f"[mesh] Q={nq} limit {count}", keys, scores, want_scores, q_codes[:nq], q_lanes[:nq], host)
+        check_sharded(label, keys, scores, want_scores, q_codes[:nq], q_lanes[:nq], host)
         if count == K:
             part = sample < nq
-            check_results(f"[mesh] Q={nq}", res, q_rows[:nq], valid, ref_np[part], top_ref[part], sample[part])
+            check_results(label, res, q_rows[:nq], valid, ref_np[part], top_ref[part], sample[part])
     for nq, t in times.items():
         single_t = warm_searches(single, queries[:nq], reps)[1]
         log(f"[mesh] warm search Q={nq} k={K}: {shards} shards median {statistics.median(t) * 1e3:.3f} ms, "
+            f"'pallas' (the twin per shard) {statistics.median(times_p[nq]) * 1e3:.3f} ms, "
             f"single device {statistics.median(single_t) * 1e3:.3f} ms ({reps} each) [{CARD.get('smi', 'cpu')}]")
+    pidx.close()
+    xidx.close()
+    del pidx, xidx, pparts
     if profile:
         for nq in qs[:2]:
             phase_profile(idx, queries[:nq], "auto", name="mesh")
-    log(f"[mesh] {shards} shards at Q={qs} k={K} and limit {limit}: score multisets equal the single-device "
-        f"index's, every row carries its brute-force score, no removed key; {N_ORACLE} sampled queries against "
-        f"brute force; the int8-twin route per shard equals the sharded scan")
+    log(f"[mesh] {shards} shards at Q={qs} k={K} and limit {limit}, under 'auto' and 'pallas' (and 'xla' at "
+        f"Q={qs[1]}): score multisets equal the single-device index's, every row carries its brute-force score, no "
+        f"removed key; {N_ORACLE} sampled queries against brute force; the int8-twin route per shard equals the "
+        f"sharded scan")
 
     # The in-process references of the clusters' hier_pm1_topk.
     q_pm1, q_scale = (torch.from_numpy(t).to(dev) for t in prepare_queries(q_codes, q_lanes, 256))
@@ -1827,6 +1992,28 @@ def spy_routes():
         device_index.blockmax_topk_packedq_impl = real
 
     device_index.blockmax_topk_packedq_impl = spy
+    return seen, stop
+
+
+def spy_calls(names):
+    """Count the engine's calls of the route functions ``names`` of
+    ``engine/device_index.py`` until ``stop()`` is called. Returns (the
+    counts by name, stop)."""
+    seen = dict.fromkeys(names, 0)
+    real = {name: getattr(device_index, name) for name in names}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            seen[name] += 1
+            return real[name](*args, **kwargs)
+        return call
+
+    def stop():
+        for name, fn in real.items():
+            setattr(device_index, name, fn)
+
+    for name in names:
+        setattr(device_index, name, counting(name))
     return seen, stop
 
 
@@ -4549,6 +4736,9 @@ def main():
                 phase_profile(idx, batch, scan_kernel)
         phase_persist(rng, dev, idx, queries, tmp)
         t0 = time.perf_counter()
+        knob_launches = phase_knobs(dev, idx, queries, oracle)
+        log(f"[knobs] phase time {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
         mesh_launches, mesh_kernel4, mesh_outs = phase_mesh(dev, idx, queries, oracle, tmp, profile=args.profile)
         log(f"[mesh] phase time {time.perf_counter() - t0:.1f} s")
         t0 = time.perf_counter()
@@ -4557,8 +4747,9 @@ def main():
         del idx, oracle
     # The config-3 path: the slice's searches and the [route] phase's 'auto' searches.
     by_path = {"config3": {name: slice_launches[name] + route_launches.get(name, 0) for name in PATH_KERNELS},
-               "mesh": {name: mesh_launches[name] for name in PATH_KERNELS}}
-    # Kernel 4 (the int8-twin phase 1): [twin] on the engine's partitions, and the mesh path's twin route per shard.
+               "knobs": knob_launches, "mesh": {name: mesh_launches[name] for name in PATH_KERNELS}}
+    # Kernel 4 (the int8-twin phase 1): [twin] on the engine's partitions, and the mesh path: the
+    # scan_kernel="pallas" searches' twin route per shard and its direct calls (TWIN_LAUNCHES splits them).
     twin_by_path = {"twin": twin_launches["blockmax_mma_unpacked"], "mesh": mesh_launches["blockmax_mma_unpacked"]}
     launches = {**by_path["config3"], "blockmax_mma_unpacked": sum(twin_by_path.values())}
     for kernel, name in ROUTE_KERNELS.items():
@@ -4610,7 +4801,7 @@ def main():
             entry["also_replaces"] = meta["also_replaces"]
         entry.update({"launches": launches[name], **stats[name]})
         if name in PATH_KERNELS:
-            # The search paths' launches: config 3 (phases 4-6), the mesh, the
+            # The search paths' launches: config 3 (phases 4-6), [knobs]' kernel routes, the mesh, the
             # simprint engine at config 4, the asset-level entry point, the
             # REST server, scale-out, the multi-host cluster (both ranks of
             # both its parts) and the aggregator's index; and the kernel at the
@@ -4624,6 +4815,7 @@ def main():
                 entry["at_multihost_shapes"] = mh_stats[name]
         if name == "blockmax_mma_unpacked":
             entry["launches_by_path"] = twin_by_path
+            entry["mesh_launches_by_source"] = {src: TWIN_LAUNCHES[f"mesh {src}"] for src in ("searches", "direct calls")}
             entry["at_mesh_shapes"] = mesh_kernel4
         summary.append(entry)
     print(json.dumps({"kernels": summary}))

@@ -11,7 +11,8 @@ fixed-width index over 16-byte keys.
 - The device mirror partitions rows by code length (lane count), so the NPHD
   prefix scale is a per-query broadcast inside each partition. A partition
   is a packed ``(cap, lanes)`` int32 tensor and a ``(cap,)`` uint8 validity
-  tensor on ``device``; no unpacked, permuted or bit-transposed twin exists.
+  tensor on ``device``; no permuted or bit-transposed twin exists, and an
+  unpacked one only on a mesh under ``scan_kernel="pallas"``.
 - Search runs, per partition, the exact two-phase scan of
   :mod:`iscc_search_tpu_torch.ops.hopper_scan` (phase-1 block-max kernel,
   hierarchical top-k blocks, phase-3 gather-rescore kernel, final top-k),
@@ -22,6 +23,18 @@ fixed-width index over 16-byte keys.
   ``"mma_small"``, ``"mma"``) or, as ``"auto"``, takes per partition the one
   that :func:`auto_phase1` names for the batch size and the partition's
   width.
+- ``scan_kernel`` also takes the JAX engine's values, and every route is a
+  kernel route. ``"xla"`` routes as ``"auto"``: the JAX engine's XLA scan
+  exists because Pallas lowers only on a TPU, and the port's kernels run on
+  every card it supports. ``"pallas"`` routes as ``"auto"`` on one device
+  (the TPU's bit-transposed and permuted twins are not ported,
+  ``ops/hopper_scan.py``); on a mesh it builds the ±1 int8 twin per shard
+  within ``ISCC_SEARCH_UNPACKED_MAX_BYTES`` and searches it through
+  ``sharded_pallas_topk`` (phase 1 on ``blockmax_mma_unpacked``), at any
+  ``count``; a partition without its twin takes the kernel route per shard.
+- ``recall_target < 1.0`` is served exactly, by the same routes. Off a TPU
+  the JAX engine's ``"approx"`` route is exact too: XLA lowers
+  ``approx_max_k`` to its exact fallback there.
 - With a ``mesh`` (:mod:`iscc_search_tpu_torch.parallel`), each partition
   is row-sharded over the mesh at a power-of-two capacity per shard; every
   shard runs the same per-partition scan on its own device, then the
@@ -42,9 +55,6 @@ fixed-width index over 16-byte keys.
   queued snapshots coalesce by sequence. A directory saved by either
   package loads in the other. ``path=None`` is an in-memory index that
   never saves.
-
-Not ported yet (raises ``NotImplementedError`` naming its ROADMAP.md item):
-``scan_kernel="pallas"`` (the port has no Pallas and no XLA scan).
 """
 
 from __future__ import annotations
@@ -63,7 +73,9 @@ import torch
 
 from iscc_search_tpu_torch.ops.hopper_scan import blockmax_topk_packedq_impl
 from iscc_search_tpu_torch.ops.packing import MAX_LANES, pack_codes, unpack_code
+from iscc_search_tpu_torch.ops.pm1_scan import query_prefix
 from iscc_search_tpu_torch.parallel.merge import merge_shards
+from iscc_search_tpu_torch.parallel.pallas_sharded import shard_unpacked_db, sharded_pallas_topk
 from iscc_search_tpu_torch.parallel.pm1_sharded import shard_pm1_database
 
 _MIN_DEVICE_ROWS = 8192  # device partition capacity floor
@@ -71,9 +83,9 @@ _CAP_QUANTUM = 65536  # partition capacity granularity above the floor
 
 logger = logging.getLogger(__name__)
 
-_TODO_KNOBS = "ROADMAP.md, 'Modules still to port': knobs"
-
-SCAN_KERNELS = ("auto", "mma", "mma_small", "popc")
+# The JAX engine's values ("auto", "pallas", "xla"), then the port's forced
+# phase-1 kernels (keys of hopper_scan.PHASE1).
+SCAN_KERNELS = ("auto", "pallas", "xla", "mma", "mma_small", "popc")
 
 # Row-space generations are unique across instances, as in the JAX engine.
 _ROW_GEN_COUNTER = itertools.count(1)
@@ -95,6 +107,23 @@ def _cap_rows(n):
     if n <= _CAP_QUANTUM:
         return max(_MIN_DEVICE_ROWS, _pow2ceil(n))
     return -(-(n + n // 8) // _CAP_QUANTUM) * _CAP_QUANTUM
+
+
+def _unpacked_budget_bytes():
+    # type: () -> int
+    """Device bytes one shard's ±1 int8 twin may take (8x its packed rows),
+    ``ISCC_SEARCH_UNPACKED_MAX_BYTES``, 9 GiB by default as in the JAX
+    engine; a partition whose twin would not fit serves from the packed
+    rows."""
+    return int(os.environ.get("ISCC_SEARCH_UNPACKED_MAX_BYTES", 9 * 1024**3))
+
+
+def _scan_k(rows, count):
+    # type: (int, int) -> int
+    """The k of a scan over ``rows`` rows (a partition, or one shard) for
+    ``count`` results: bucketed to a power of two, at most ``rows``, the
+    JAX engine's k; trimmed to ``count`` in ``_collect_results``."""
+    return min(_pow2ceil(max(1, count)), rows)
 
 
 def _to_device(array, device):
@@ -188,13 +217,16 @@ def _npz_bytes(**arrays):
 class _Partition:
     """Device mirror of one code-length partition."""
 
-    __slots__ = ("packed_dev", "valid_dev", "row_map", "cap", "count")
+    __slots__ = ("packed_dev", "valid_dev", "unpacked_dev", "row_map", "cap", "count")
 
-    def __init__(self, packed_dev, valid_dev, row_map, cap, count):
+    def __init__(self, packed_dev, valid_dev, row_map, cap, count, unpacked_dev=None):
         # (cap, lanes) int32 and (cap,) uint8; with a mesh, lists of this
         # process's shards. Validity is rebound (never mutated) per generation.
         self.packed_dev = packed_dev
         self.valid_dev = valid_dev
+        # The ±1 int8 twin per shard (a list like packed_dev), on a mesh under
+        # scan_kernel="pallas" within _unpacked_budget_bytes(); else None.
+        self.unpacked_dev = unpacked_dev
         self.row_map = row_map  # (cap,) int32 global row per device row (padding rows -> 0, invalid)
         self.cap = cap
         self.count = count  # real rows uploaded
@@ -239,13 +271,21 @@ class PackedCodeIndex:
         :param max_dim: maximum code width in bits
         :param shard_size: seal an immutable segment after this many bytes
         :param ndim: fixed code width in bits for the hamming metric
-        :param recall_target: accepted for API parity and served EXACTLY —
-            exact results meet any recall target; ``>= 1.0`` becomes None
-        :param scan_kernel: the phase-1 kernel on CUDA: "popc" (XOR + popc),
-            "mma_small" (int8 tensor cores, ``mma.sync``, small batches),
-            "mma" (int8 tensor cores, ``wgmma``) or "auto" (per partition and
-            batch, :func:`auto_phase1`); the results are the same. On the CPU
-            every value runs the plain version.
+        :param recall_target: accepted for API parity and served EXACTLY by
+            the kernel routes (exact results meet any recall target; off a
+            TPU XLA lowers the JAX engine's approximate top-k to an exact
+            one too); ``>= 1.0`` becomes None
+        :param scan_kernel: the scan. "popc" (XOR + popc), "mma_small" (int8
+            tensor cores, ``mma.sync``, small batches) and "mma" (int8 tensor
+            cores, ``wgmma``) force a phase-1 kernel; "auto" takes one per
+            partition and batch (:func:`auto_phase1`); "pallas" (the JAX
+            engine's fused kernels) routes as "auto" on one device and
+            through the ±1 int8 twin per shard on a mesh (phase 1 on
+            ``blockmax_mma_unpacked``) where it fits
+            ``ISCC_SEARCH_UNPACKED_MAX_BYTES``; "xla" (the JAX engine's XLA
+            scan) routes as "auto". The results are the same. On the CPU
+            every kernel runs its plain version. Another value raises
+            ``ValueError``.
         :param mesh: optional :class:`~iscc_search_tpu_torch.parallel.mesh.Mesh`:
             partitions row-shard over it and searches merge the shards'
             candidates; a mesh of one shard is no mesh. Its devices must be
@@ -255,9 +295,7 @@ class PackedCodeIndex:
             nothing is auto-detected, and "cuda" without a card raises
         """
         if scan_kernel not in SCAN_KERNELS:
-            raise NotImplementedError(
-                f"scan_kernel={scan_kernel!r} is not ported: the port has {SCAN_KERNELS} ({_TODO_KNOBS})"
-            )
+            raise ValueError(f"scan_kernel: {scan_kernel!r} is not one of {SCAN_KERNELS}")
         self.path = Path(path) if path is not None else None
         self.max_dim = max_dim
         self.ndim = ndim
@@ -830,39 +868,58 @@ class PackedCodeIndex:
         # type: (list[bytes], int, bool) -> list[tuple]
         with self._lock:
             synced = self._sync_device()
-            # A consistent (buffer, validity, row_map) triple per partition:
+            # A consistent (buffers, validity, row_map) triple per partition:
             # a concurrent sync rebinds validity and appends rows past count.
-            partitions = {lanes: (p.packed_dev, p.valid_dev, p.row_map, p.cap) for lanes, p in synced.items()}
+            partitions = {
+                lanes: (p.packed_dev, p.valid_dev, p.unpacked_dev, p.row_map, p.cap) for lanes, p in synced.items()
+            }
             keys_snapshot = self._keys[: self._rows]
 
         q_codes, q_lanes = pack_codes([self._vector_bytes(b) for b in query_bodies], self.max_lanes)
         q_codes_dev = _to_device(q_codes, self.device)
         q_lanes_dev = _to_device(q_lanes, self.device)
-        n_shards = self.mesh.size if self.mesh is not None else 1
         pending = []
         for lanes in sorted(partitions):
-            packed_dev, valid_dev, row_map, cap = partitions[lanes]
-            # k as the JAX engine buckets it (pow2, at most the partition or
-            # the shard); trimmed to `count` in _collect_results.
-            k = min(_pow2ceil(max(1, count)), cap // n_shards)
-            phase1 = auto_phase1(len(query_bodies), lanes) if self.scan_kernel == "auto" else self.scan_kernel
+            packed_dev, valid_dev, unpacked_dev, row_map, cap = partitions[lanes]
             if self.mesh is None:
-                scores, rows = blockmax_topk_packedq_impl(
-                    q_codes_dev, q_lanes_dev, packed_dev, valid_dev, k, lanes * 32, phase1=phase1
-                )
+                scores, rows = blockmax_topk_packedq_impl(q_codes_dev, q_lanes_dev, packed_dev, valid_dev,
+                                                          _scan_k(cap, count), lanes * 32,
+                                                          phase1=self._phase1(len(query_bodies), lanes))
             else:
-                scores, rows = self._sharded_scan(q_codes_dev, q_lanes_dev, packed_dev, valid_dev, k, lanes, count, phase1)
+                scores, rows = self._mesh_scan(q_codes_dev, q_lanes_dev, packed_dev, valid_dev, unpacked_dev, cap,
+                                               lanes, count)
             pending.append((row_map, scores, rows))
         return self._collect_results(pending, len(query_bodies), count, keys_snapshot, return_rows)
 
+    def _phase1(self, nq, lanes):
+        # type: (int, int) -> str
+        """The phase-1 kernel of a kernel route: :func:`auto_phase1`'s under
+        "auto", "pallas" and "xla", else the one ``scan_kernel`` forces."""
+        return auto_phase1(nq, lanes) if self.scan_kernel in ("auto", "pallas", "xla") else self.scan_kernel
+
+    def _mesh_scan(self, q_codes, q_lanes, packed_shards, valid_shards, unpacked_shards, cap, lanes, count):
+        # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+        """One partition's search on the mesh, merged on the lead device
+        (across processes too): ``sharded_pallas_topk`` where the partition
+        has its twin ("pallas"), else the kernel route per shard
+        (:meth:`_sharded_scan`). Both merge at ``merge_k =
+        min(pow2(count), k * n_shards)``: a count above the per-shard ``k``
+        would otherwise drop rows that exist across shards."""
+        k = _scan_k(cap // self.mesh.size, count)
+        if unpacked_shards is not None:
+            nbits = lanes * 32
+            min_lanes, q_scale = query_prefix(q_lanes, nbits)
+            merge_k = min(_pow2ceil(max(1, count)), k * self.mesh.size)
+            return sharded_pallas_topk(self.mesh, q_codes, min_lanes, q_scale, packed_shards, unpacked_shards,
+                                       valid_shards, k, nbits, merge_k=merge_k)
+        return self._sharded_scan(q_codes, q_lanes, packed_shards, valid_shards, k, lanes, count,
+                                  self._phase1(q_codes.shape[0], lanes))
+
     def _sharded_scan(self, q_codes, q_lanes, packed_shards, valid_shards, k, lanes, count, phase1):
         # type: (...) -> tuple[torch.Tensor, torch.Tensor]
-        """One partition's search on the mesh: the single-device scan on each
-        of this process's shards (on its device), rows lifted to the
-        partition's global rows, then the merge (across processes too).
-        The merge keeps ``merge_k = min(pow2(count), k * n_shards)``: a count
-        above the per-shard ``k`` would otherwise drop rows that exist
-        across shards."""
+        """The kernel route on the mesh: the single-device scan on each of
+        this process's shards (on its device), rows lifted to the
+        partition's global rows, then the merge (across processes too)."""
         parts = [
             blockmax_topk_packedq_impl(q_codes.to(p.device), q_lanes.to(p.device), p, v, k, lanes * 32, phase1=phase1)
             for p, v in zip(packed_shards, valid_shards)
@@ -1149,7 +1206,16 @@ class PackedCodeIndex:
         full_map = np.zeros((cap,), np.int32)
         full_map[:n] = row_map
         if self.mesh is not None:
-            return _Partition(*shard_pm1_database(self.mesh, packed, valid), full_map, cap, n)
+            packed_dev, valid_dev = shard_pm1_database(self.mesh, packed, valid)
+            # The twin shards row-wise too, so the budget holds per shard; one
+            # unpermuted twin (the JAX engine builds a permuted one, and a plain
+            # one where twice the bytes fit). The JAX engine's _use_pallas also
+            # turns the twins on under "auto" on a TPU; the port's "auto" keeps
+            # its kernel routes.
+            unpacked_dev = None
+            if self.scan_kernel == "pallas" and cap // self.mesh.size * lanes * 32 <= _unpacked_budget_bytes():
+                unpacked_dev = shard_unpacked_db(self.mesh, packed_dev, lanes * 32)
+            return _Partition(packed_dev, valid_dev, full_map, cap, n, unpacked_dev=unpacked_dev)
         return _Partition(_to_device(packed, self.device), _to_device(valid, self.device), full_map, cap, n)
 
     def _append_to_partition(self, part, lanes, new_rows):

@@ -8,16 +8,18 @@ Same field names, defaults, bounds, patterns and ``ISCC_SEARCH_<FIELD>``
 environment names; ``from_env()`` and ``override()`` as there, each value
 checked against the field's bounds (``ValueError`` where pydantic raises
 ``ValidationError``). Not ported: the fields only the JAX engine reads
-(``scan_chunk_rows``, ``compile_cache_dir``: kernels are cached by source
-hash under ``build/torch_kernels/``). ``distributed`` joins a
-``torch.distributed`` cluster (``ISCC_SEARCH_COORDINATOR``, ``_NUM_HOSTS``,
-``_HOST_ID``) where the JAX package calls ``jax.distributed.initialize()``.
-One value differs: ``scan_kernel`` takes the port's phase-1
-choices (``"auto"``, ``"mma"``, ``"mma_small"``, ``"popc"``;
-``engine/device_index.py`` ``SCAN_KERNELS``) where the JAX package takes
-``"auto"``, ``"pallas"`` and ``"xla"``. The default ``index_uri`` is the
-platform data directory platformdirs gives on Linux (``$XDG_DATA_HOME`` or
-``~/.local/share``, then ``iscc-search-tpu``), without platformdirs.
+(``scan_chunk_rows``, ``compile_cache_dir``: the port's kernels are cached
+by source hash under ``build/torch_kernels/``); ``override()`` drops
+those keys, so a JAX options dict applies unchanged, and ``from_env()``
+ignores their variables.
+``distributed`` joins a ``torch.distributed`` cluster
+(``ISCC_SEARCH_COORDINATOR``, ``_NUM_HOSTS``, ``_HOST_ID``) where the JAX
+package calls ``jax.distributed.initialize()``. ``scan_kernel`` takes the
+JAX values ``"auto"``, ``"pallas"`` and ``"xla"`` and the port's forced
+phase-1 kernels ``"mma"``, ``"mma_small"`` and ``"popc"``
+(``engine/device_index.py`` ``SCAN_KERNELS``). The default ``index_uri`` is
+the platform data directory platformdirs gives on Linux (``$XDG_DATA_HOME``
+or ``~/.local/share``, then ``iscc-search-tpu``), without platformdirs.
 """
 
 from __future__ import annotations
@@ -61,6 +63,7 @@ _BOUNDS = {
     "sentry_traces_sample_rate": (0.0, 1.0, False),
 }
 HTTP_BACKENDS = ("pooled", "wsgiref")  # the JAX field's pattern ^(pooled|wsgiref)$
+JAX_ONLY = ("scan_chunk_rows", "compile_cache_dir")  # JAX fields that only the JAX engine reads
 
 
 def user_data_dir():
@@ -194,8 +197,9 @@ class SearchOptions:
 
     def override(self, update=None):
         # type: (dict | None) -> SearchOptions
-        """Validated copy with per-field updates; an unknown field raises."""
-        update = update or {}
+        """Validated copy with per-field updates; an unknown field raises.
+        The fields only the JAX engine reads (``JAX_ONLY``) are dropped."""
+        update = {name: value for name, value in (update or {}).items() if name not in JAX_ONLY}
         unknown = set(update) - {f.name for f in dataclasses.fields(self)}
         if unknown:
             raise ValueError(f"unknown search options: {sorted(unknown)}")

@@ -487,8 +487,22 @@ def test_option_override():
         base.override({"nope": 1})
     with pytest.raises(ValueError):
         base.override({"oversampling_factor": 0})
+    # scan_kernel takes the JAX values and the port's forced kernels; the
+    # fields only the JAX engine reads are the JAX fields the port lacks, and
+    # override() drops them, so a JAX options dict applies unchanged.
+    theirs = jax_options.SearchOptions()
+    for value in ("pallas", "xla"):
+        assert base.override({"scan_kernel": value}).scan_kernel == theirs.override({"scan_kernel": value}).scan_kernel
+    assert base.override({"scan_kernel": "popc"}).scan_kernel == "popc"
     with pytest.raises(ValueError, match="scan_kernel"):
-        base.override({"scan_kernel": "pallas"})  # the port's phase-1 choices only
+        base.override({"scan_kernel": "wgmma"})
+    assert set(jax_options.SearchOptions.model_fields) - set(OPTION_FIELDS) == set(options.JAX_ONLY)
+    for update in ({"scan_chunk_rows": 128}, {"scan_chunk_rows": "4096"}, {"compile_cache_dir": "off"},
+                   {"compile_cache_dir": "/tmp/cache"}, {"compile_cache_dir": None}):
+        theirs.override(update)
+        assert base.override(update) == base, update
+        assert base.override({**update, "oversampling_factor": 5}) == new.override({"search_batching": True}), update
+    assert options.SearchOptions.from_env({"ISCC_SEARCH_SCAN_CHUNK_ROWS": "4096"}) == options.SearchOptions.from_env({})
 
 
 # ------------------------------------------------------------- the batcher

@@ -314,10 +314,13 @@ def test_empty_index_and_empty_batch():
 
 
 def test_unported_features_name_their_roadmap_item(tmp_path):
-    """A mesh in one process is ported (``tests/test_torch_engine_sharded.py``):
-    a mesh of two CPU shards is kept, one of one shard is no mesh, and a mesh
-    on another device type than ``device`` raises. ``scan_kernel="pallas"``
-    still names its ROADMAP.md item; the control hook is settable and
+    """Every feature that once named a ROADMAP.md item is ported. A mesh in
+    one process (``tests/test_torch_engine_sharded.py``): a mesh of two CPU
+    shards is kept, one of one shard is no mesh, and a mesh on another
+    device type than ``device`` raises. The knobs (queue 1 item 5):
+    ``scan_kernel="pallas"`` builds the int8 twin per shard only on a mesh,
+    ``"xla"`` never, and ``recall_target`` is kept below 1.0
+    (``tests/test_torch_knobs.py``). The control hook is settable and
     mirrors each mutation and search (the JAX engine's op tuples) before the
     local copy applies."""
     from iscc_search_tpu_torch.parallel import make_mesh
@@ -326,8 +329,13 @@ def test_unported_features_name_their_roadmap_item(tmp_path):
     assert DeviceNphdIndex(mesh=make_mesh(1, device="cpu"), device="cpu").mesh is None
     with pytest.raises(ValueError, match="the mesh's shards are on"):
         DeviceNphdIndex(mesh=make_mesh(2, devices=["meta", "meta"]), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md.*knobs"):
-        DeviceNphdIndex(scan_kernel="pallas", device="cpu")
+    for scan_kernel, twin in (("pallas", True), ("xla", False)):
+        for mesh in (None, make_mesh(2, device="cpu")):
+            knob = DeviceNphdIndex(scan_kernel=scan_kernel, recall_target=0.9, mesh=mesh, device="cpu")
+            assert (knob.scan_kernel, knob.recall_target) == (scan_kernel, 0.9)
+            knob.add([5, 6], [bytes(range(8)), bytes(16)])
+            assert knob.search_one(bytes(range(8)), 1) == {5: 1.0}
+            assert all((p.unpacked_dev is not None) == (twin and mesh is not None) for p in knob._partitions.values())
     idx = DeviceNphdIndex(tmp_path / "new", device="cpu")
     assert idx.control_hook is None
     ops = []
@@ -350,9 +358,18 @@ def test_unported_features_name_their_roadmap_item(tmp_path):
 
 @pytest.mark.parametrize("value", ["pallas", "xla", "wgmma", "", None])
 def test_scan_kernel_values_the_port_lacks_raise_with_their_roadmap_words(tmp_path, value):
-    """The JAX engine's ``"pallas"`` and "anything else = the XLA scan" have
-    no counterpart: the port has no Pallas and no XLA scan."""
-    with pytest.raises(NotImplementedError, match=r"scan_kernel=.*\('auto', 'mma', 'mma_small', 'popc'\).*ROADMAP.md.*knobs"):
+    """The JAX engine's ``"pallas"`` and ``"xla"`` are ported: they construct
+    and search (``tests/test_torch_knobs.py`` holds their routes). Any value
+    outside the six raises ``ValueError`` naming them, as ``SearchOptions``
+    does, before the directory is touched."""
+    if value in ("pallas", "xla"):
+        idx = DeviceNphdIndex(tmp_path / "i", scan_kernel=value, device="cpu")
+        idx.add([1, 2], [bytes(range(8)), bytes(range(1, 33))])
+        assert idx.search_one(bytes(range(1, 33)), 2)[2] == 1.0
+        idx.close()
+        assert (tmp_path / "i" / "state.json").exists()
+        return
+    with pytest.raises(ValueError, match=r"scan_kernel: .* is not one of \('auto', 'pallas', 'xla', 'mma', 'mma_small', 'popc'\)"):
         DeviceNphdIndex(tmp_path / "i", scan_kernel=value, device="cpu")
     assert not (tmp_path / "i").exists()
 
@@ -382,7 +399,8 @@ def test_every_scan_kernel_gives_the_jax_engines_results(pair, data, scan_kernel
 
 def test_scan_kernel_reaches_phase_one(monkeypatch):
     """The engine hands ``blockmax_topk_packedq_impl`` the forced kernel, or
-    under ``"auto"`` what ``auto_phase1`` names for the batch and the partition."""
+    under ``"auto"``, ``"pallas"`` (one device) and ``"xla"`` what
+    ``auto_phase1`` names for the batch and the partition."""
     seen = []
     real = di.blockmax_topk_packedq_impl
 
@@ -398,7 +416,8 @@ def test_scan_kernel_reaches_phase_one(monkeypatch):
         for nq in (1, *(q - 1 for q in edges), *edges):
             del seen[:]
             idx.search([bytes(8)] * nq, 2)
-            want = [(nq, lanes, di.auto_phase1(nq, lanes) if scan_kernel == "auto" else scan_kernel) for lanes in (2, 4, 6, 8)]
+            want = [(nq, lanes, di.auto_phase1(nq, lanes) if scan_kernel in ("auto", "pallas", "xla") else scan_kernel)
+                    for lanes in (2, 4, 6, 8)]
             assert seen == want
             if scan_kernel == "auto" and nq in (1, edges[-1]):  # one kernel for every width at both ends
                 assert {p for _, _, p in seen} == {"popc" if nq == 1 else "mma"}
@@ -424,7 +443,7 @@ def test_auto_phase1_is_a_table_of_batch_size_and_width(lanes):
         assert di.auto_phase1(nq, lanes) == "mma"
     assert {di.auto_phase1(nq, lanes) for nq in range(1, 200)} == {"popc", "mma_small", "mma"}
     assert sorted(di._AUTO_ROUTE) == [2, 4, 6, 8]
-    assert set(di.SCAN_KERNELS) - {"auto"} <= set(di.blockmax_topk_packedq_impl.__globals__["PHASE1"])
+    assert set(di.SCAN_KERNELS) - {"auto", "pallas", "xla"} <= set(di.blockmax_topk_packedq_impl.__globals__["PHASE1"])
 
 
 def test_a_failed_sync_forces_a_full_rebuild(monkeypatch):

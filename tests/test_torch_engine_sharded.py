@@ -5,12 +5,10 @@ CPU devices).
 
 - The cases of ``tests/test_engine_sharded.py`` compiled against the port
   (``tests/test_torch_parallel._jax_cases``; the indexes take
-  ``device="cpu"``). Left out, each with its port version:
-  ``test_sharded_engine_keeps_pallas_fast_path`` and
-  ``test_sharded_engine_tombstones_respected_on_pallas_path``
-  (``scan_kernel="pallas"`` has no counterpart: the port's per-shard step
-  is its single-device scan, ``test_each_shard_runs_the_single_device_scan``
-  and ``test_mesh_engine_equals_no_mesh``), and
+  ``device="cpu"``), ``scan_kernel="pallas"``'s two among them: the
+  partitions carry the int8 twin per shard and searches take
+  ``sharded_pallas_topk`` (``tests/test_torch_knobs.py`` holds the route).
+  Left out, with its port version:
   ``test_partition_penalty_memo_reuse_and_invalidation`` (the port's kernels
   read the validity mask, there is no penalty row to memoize:
   ``test_every_sync_rebuilds_the_shards``).
@@ -56,7 +54,9 @@ REPO = Path(__file__).resolve().parents[1]
 CpuIndex = functools.partial(DeviceNphdIndex, device="cpu")
 
 ENGINE = ["test_sharded_engine_matches_single_device", "test_sharded_engine_update_remove",
-          "test_mesh_of_one_disables_sharding", "test_tpu_index_with_mesh_option", "Test2DMesh", "mesh"]
+          "test_mesh_of_one_disables_sharding", "test_tpu_index_with_mesh_option",
+          "test_sharded_engine_keeps_pallas_fast_path", "test_sharded_engine_tombstones_respected_on_pallas_path",
+          "Test2DMesh", "mesh"]
 globals().update(_jax_cases(
     "test_engine_sharded", ENGINE, overrides={"DeviceNphdIndex": CpuIndex},
     replace=[('TpuIndex(tmp_path / "m", mesh_devices=8,', 'TpuIndex(tmp_path / "m", device="cpu", mesh_devices=8,')],

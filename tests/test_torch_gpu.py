@@ -860,3 +860,65 @@ def test_sharded_twin_route_launches_kernel_4_per_shard(dev, nbits):
                               mesh, 16)
             assert torch.equal(outs[-1][0], want[0]) and torch.equal(outs[-1][1], want[1])
     assert torch.equal(outs[0][0].cpu(), outs[1][0])
+
+
+@pytest.mark.parametrize("nq", (1, 40, 300))
+def test_pallas_mesh_equals_the_auto_mesh_and_xla_routes_as_auto(dev, nq):
+    """4 shards of the card under ``scan_kernel="pallas"``: every partition
+    carries the int8 twin per shard, kernel 4's block maxima from it are
+    ``torch.equal`` to the ``"auto"`` mesh's phase 1 on the packed shards,
+    a search launches kernel 4 and ``gather_rescore`` once per shard and
+    partition and no other phase-1 kernel, and its answers equal the
+    ``"auto"`` mesh's by score multiset. ``"xla"`` (on the mesh and on one
+    device) launches what ``"auto"`` does, the kernel ``auto_phase1`` names
+    and ``gather_rescore`` once per shard and partition, and answers the
+    same."""
+    from iscc_search_tpu_torch.engine.device_index import auto_phase1
+    from iscc_search_tpu_torch.ops.packing import pack_codes
+
+    rng = np.random.default_rng(23)
+    n = 30000
+    codes, lanes = _random_codes(rng, n)
+    keys = np.arange(n, dtype=">u8").view(np.uint8).reshape(n, 8)
+    made = {name: DeviceNphdIndex(device="cuda", **kwargs) for name, kwargs in (
+        ("auto", {"mesh": _mesh(dev, 4)}), ("pallas", {"mesh": _mesh(dev, 4), "scan_kernel": "pallas"}),
+        ("xla", {"mesh": _mesh(dev, 4), "scan_kernel": "xla"}), ("xla_one", {"scan_kernel": "xla"}))}
+    for idx in made.values():
+        idx.add_packed(keys, codes, lanes)
+        idx.remove(list(range(0, n, 9)))
+    auto_parts, twin_parts = made["auto"]._sync_device(), made["pallas"]._sync_device()
+    q_rows = rng.integers(0, n, nq)
+    bodies = [codes[i, : lanes[i]].astype(">u4").tobytes() for i in q_rows]
+    q_codes, q_lanes = pack_codes(bodies)
+    q_packed = torch.from_numpy(q_codes.view(np.int32)).to(dev)
+    q_lanes_dev = torch.from_numpy(q_lanes).to(dev)
+    for lv, auto_part in auto_parts.items():
+        twin_part = twin_parts[lv]
+        assert len(twin_part.unpacked_dev) == 4
+        min_lanes, q_scale = query_prefix(q_lanes_dev, lv * 32)
+        for i in range(4):
+            assert torch.equal(auto_part.packed_dev[i], twin_part.packed_dev[i])
+            twin_bm = hs.blockmax_mma_unpacked(q_packed, min_lanes, q_scale, twin_part.unpacked_dev[i], twin_part.valid_dev[i])
+            auto_bm = hs.PHASE1[auto_phase1(nq, lv)](q_packed, min_lanes, q_scale, auto_part.packed_dev[i],
+                                                     auto_part.valid_dev[i])
+            assert torch.equal(twin_bm, auto_bm)
+    want = made["auto"].search(bodies, 10)
+
+    def counts():
+        return {name: fn.launches for name, fn in (*hs.PHASE1.items(), ("gather", hs.gather_rescore))}
+
+    for name, idx in made.items():
+        if name == "auto":
+            continue
+        before = counts()
+        got = idx.search(bodies, 10)
+        torch.cuda.synchronize()
+        launched = {key: counts()[key] - before[key] for key in before}
+        shards = 1 if name == "xla_one" else 4
+        want_launched = dict.fromkeys(launched, 0)
+        for lv in auto_parts:
+            want_launched["mma_twin" if name == "pallas" else auto_phase1(nq, lv)] += shards
+            want_launched["gather"] += shards
+        assert launched == want_launched
+        for (_, sg), (_, sw) in zip(got, want):
+            np.testing.assert_array_equal(np.sort(sg), np.sort(sw))
