@@ -1,0 +1,5 @@
+"""
+unit_qps: Unit queries answered in the window per second of the window.
+"""
+
+from portbench.readers import items_per_s as read  # noqa: F401
