@@ -1,7 +1,10 @@
 """
 A copy of ``iscc_search_tpu/engine/batcher.py`` (the port imports nothing of the JAX package);
 ``tests/test_torch_host_copies.py`` holds every function of it to the
-original's bytecode, the package name aside.
+original's bytecode, the package name aside, but for the port's spans
+(:mod:`iscc_search_tpu_torch.tracing`: ``batcher.queue``,
+``batcher.sweep``, ``batcher.handoff``) in ``_Pending.__init__``,
+``SearchBatcher.search`` and ``SearchBatcher._run_batch``.
 
 Cross-request micro-batching for device scans.
 
@@ -24,6 +27,7 @@ import threading
 import time
 from typing import TYPE_CHECKING
 
+from iscc_search_tpu_torch import tracing
 from iscc_search_tpu_torch.utils import get_logger
 
 if TYPE_CHECKING:  # pragma: no cover
@@ -33,7 +37,7 @@ logger = get_logger(__name__)
 
 
 class _Pending:
-    __slots__ = ("bodies", "count", "event", "result", "error")
+    __slots__ = ("bodies", "count", "event", "result", "error", "trace")
 
     def __init__(self, bodies, count):
         self.bodies = bodies
@@ -41,6 +45,9 @@ class _Pending:
         self.event = threading.Event()
         self.result = None
         self.error = None
+        # While spans are recorded: [request id, enqueued, sweep start,
+        # sweep end] in perf_counter_ns, the sweep's filled by the collector.
+        self.trace = None
 
 
 class SearchBatcher:
@@ -75,12 +82,18 @@ class SearchBatcher:
         if not bodies:
             return []
         pending = _Pending(list(bodies), count)
+        if tracing.recording():
+            pending.trace = [tracing.request_id(), time.perf_counter_ns(), 0, 0]
         with self._cond:
             if self._closed:
                 raise RuntimeError("batcher is closed")
             self._queue.append(pending)
             self._cond.notify()
         pending.event.wait()
+        if pending.trace is not None and pending.trace[3]:
+            request, enqueued, sweep_start, sweep_end = pending.trace
+            tracing.add("batcher.queue", enqueued, sweep_start, request=request)
+            tracing.add("batcher.handoff", sweep_end, time.perf_counter_ns(), request=request)
         if pending.error is not None:
             raise pending.error
         return pending.result
@@ -135,12 +148,22 @@ class SearchBatcher:
         try:
             from iscc_search_tpu_torch.server import metrics
 
-            t0 = time.perf_counter()
-            if self.return_rows:
-                results = self.index.search(bodies, max_count, return_rows=True)
-            else:
-                results = self.index.search(bodies, max_count)
-            metrics.sweep_seconds.observe(time.perf_counter() - t0)
+            t0 = time.perf_counter_ns()
+            # The sweep's span, in the request of the first caller it serves.
+            served = [item.trace for item in batch if item.trace is not None] if tracing.recording() else ()
+            sweep = tracing.start("batcher.sweep", t0, served[0][0]) if served else None
+            try:
+                if self.return_rows:
+                    results = self.index.search(bodies, max_count, return_rows=True)
+                else:
+                    results = self.index.search(bodies, max_count)
+            finally:
+                t1 = time.perf_counter_ns()
+                if sweep is not None:
+                    for trace in served:
+                        trace[2:] = (t0, t1)
+                    tracing.stop(sweep, t1, {"queries": len(bodies), "served": [trace[0] for trace in served]})
+            metrics.sweep_seconds.observe((t1 - t0) / 1e9)
             metrics.batch_queries.observe(len(bodies))
             if len(results) != len(bodies):
                 # A short return would otherwise hand trailing callers EMPTY

@@ -66,11 +66,13 @@ import logging
 import os
 import tempfile
 import threading
+import time
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from iscc_search_tpu_torch import tracing
 from iscc_search_tpu_torch.ops.hopper_scan import blockmax_topk_packedq_impl
 from iscc_search_tpu_torch.ops.packing import MAX_LANES, pack_codes, unpack_code
 from iscc_search_tpu_torch.ops.pm1_scan import query_prefix
@@ -866,30 +868,44 @@ class PackedCodeIndex:
 
     def _search_impl(self, query_bodies, count, return_rows=False):
         # type: (list[bytes], int, bool) -> list[tuple]
-        with self._lock:
-            synced = self._sync_device()
-            # A consistent (buffers, validity, row_map) triple per partition:
-            # a concurrent sync rebinds validity and appends rows past count.
-            partitions = {
-                lanes: (p.packed_dev, p.valid_dev, p.unpacked_dev, p.row_map, p.cap) for lanes, p in synced.items()
-            }
-            keys_snapshot = self._keys[: self._rows]
+        # Spans (iscc_search_tpu_torch.tracing): "search" and, one after the
+        # other, its children prepare and launch here, wait and merge in
+        # _collect_results.
+        root = tracing.start("search")
+        try:
+            with self._lock:
+                synced = self._sync_device()
+                # A consistent (buffers, validity, row_map) triple per partition:
+                # a concurrent sync rebinds validity and appends rows past count.
+                partitions = {
+                    lanes: (p.packed_dev, p.valid_dev, p.unpacked_dev, p.row_map, p.cap)
+                    for lanes, p in synced.items()
+                }
+                keys_snapshot = self._keys[: self._rows]
 
-        q_codes, q_lanes = pack_codes([self._vector_bytes(b) for b in query_bodies], self.max_lanes)
-        q_codes_dev = _to_device(q_codes, self.device)
-        q_lanes_dev = _to_device(q_lanes, self.device)
-        pending = []
-        for lanes in sorted(partitions):
-            packed_dev, valid_dev, unpacked_dev, row_map, cap = partitions[lanes]
-            if self.mesh is None:
-                scores, rows = blockmax_topk_packedq_impl(q_codes_dev, q_lanes_dev, packed_dev, valid_dev,
-                                                          _scan_k(cap, count), lanes * 32,
-                                                          phase1=self._phase1(len(query_bodies), lanes))
-            else:
-                scores, rows = self._mesh_scan(q_codes_dev, q_lanes_dev, packed_dev, valid_dev, unpacked_dev, cap,
-                                               lanes, count)
-            pending.append((row_map, scores, rows))
-        return self._collect_results(pending, len(query_bodies), count, keys_snapshot, return_rows)
+            q_codes, q_lanes = pack_codes([self._vector_bytes(b) for b in query_bodies], self.max_lanes)
+            q_codes_dev = _to_device(q_codes, self.device)
+            q_lanes_dev = _to_device(q_lanes, self.device)
+            if root is not None:
+                t = time.perf_counter_ns()
+                tracing.add("search.prepare", root.t0, t)
+            pending = []
+            for lanes in sorted(partitions):
+                packed_dev, valid_dev, unpacked_dev, row_map, cap = partitions[lanes]
+                if self.mesh is None:
+                    scores, rows = blockmax_topk_packedq_impl(q_codes_dev, q_lanes_dev, packed_dev, valid_dev,
+                                                              _scan_k(cap, count), lanes * 32,
+                                                              phase1=self._phase1(len(query_bodies), lanes))
+                else:
+                    scores, rows = self._mesh_scan(q_codes_dev, q_lanes_dev, packed_dev, valid_dev, unpacked_dev,
+                                                   cap, lanes, count)
+                pending.append((row_map, scores, rows))
+            if root is not None:
+                tracing.add("search.launch", t, time.perf_counter_ns())
+            return self._collect_results(pending, len(query_bodies), count, keys_snapshot, return_rows, root)
+        finally:
+            if root is not None:
+                tracing.stop(root, counts={"queries": len(query_bodies)})
 
     def _phase1(self, nq, lanes):
         # type: (int, int) -> str
@@ -927,10 +943,12 @@ class PackedCodeIndex:
         merge_k = min(_pow2ceil(max(1, count)), k * self.mesh.size)
         return merge_shards(self.mesh, parts, packed_shards[0].shape[0], merge_k)
 
-    def _collect_results(self, pending, nq, count, keys_snapshot, return_rows):
-        # type: (list, int, int, np.ndarray, bool) -> list[tuple]
+    def _collect_results(self, pending, nq, count, keys_snapshot, return_rows, span=None):
+        # type: (list, int, int, np.ndarray, bool, tracing.Span | None) -> list[tuple]
         """Read back every partition's (scores, rows), map device rows to
-        global rows, and merge the per-query candidates on the host."""
+        global rows, and merge the per-query candidates on the host (the
+        spans ``search.wait`` and ``search.merge`` under ``span``)."""
+        t0 = time.perf_counter_ns() if span is not None else 0
         if self.device.type == "cuda":
             # Every copy is queued before one wait: the readbacks overlap each
             # other and the tail of the device work.
@@ -945,6 +963,9 @@ class PackedCodeIndex:
             torch.cuda.current_stream(self.device).synchronize()
         else:
             host = [(rm, s[:, :count], i[:, :count]) for rm, s, i in pending]
+        if span is not None:
+            t1 = time.perf_counter_ns()
+            tracing.add("search.wait", t0, t1)
 
         cand_scores = [[] for _ in range(nq)]  # type: list[list[np.ndarray]]
         cand_rows = [[] for _ in range(nq)]  # type: list[list[np.ndarray]]
@@ -966,6 +987,12 @@ class PackedCodeIndex:
                 results.append((keys_snapshot[rr], s[order].astype(np.float32), rr))
             else:
                 results.append((keys_snapshot[rr], s[order].astype(np.float32)))
+        candidates = sum(int(np.count_nonzero(i.numpy() >= 0)) for _, _, i in host) if span is not None else 0
+        # The merge's temporaries (two arrays per query and partition) are
+        # freed here, inside its span, and not at the return.
+        del host, cand_scores, cand_rows
+        if span is not None:
+            tracing.add("search.merge", t1, time.perf_counter_ns(), {"candidates": candidates})
         return results
 
     def _key(self, key):

@@ -1,7 +1,8 @@
 """
 Simprint engine: granular chunk-level similarity search on device (port of
 ``iscc_search_tpu/engine/simprint.py``; the code is the JAX package's but for
-the ``device`` argument and ``max_sweep_queries``).
+the ``device`` argument, ``max_sweep_queries`` and the port's spans,
+``simprint.search`` and ``simprint.score``, in ``search_raw_many``).
 
 Replaces the reference's HNSW-based UsearchSimprintIndex
 (indexes/simprint/usearch_core.py). Chunks are stored in a
@@ -18,11 +19,13 @@ candidate list exact instead of approximate.
 
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from pathlib import Path
 
 import numpy as np
 
+from iscc_search_tpu_torch import tracing
 from iscc_search_tpu_torch.engine import simprint_ops as ops
 from iscc_search_tpu_torch.engine.device_index import DeviceHammingIndex
 
@@ -146,37 +149,47 @@ class SimprintEngine:
         """
         if not queries:
             return []
-        if len(self._index) == 0:
-            return [[] for _ in queries]
-        count = max(1, limit * self.oversampling_factor)
-        flat = [bytes(s) for q in queries for s in q]
-        if not flat:
-            return [[] for _ in queries]
-        sweep = sweep_fn or (lambda bodies, c: self._index.search(bodies, c, return_rows=True))
-        # Capture the row-space generation BEFORE the sweeps: a compact()
-        # racing the search renumbers rows, and body_at() must then fall back
-        # to query bytes instead of silently reading a different key's body.
-        # (Capturing early is the safe direction — worst case an unnecessary
-        # fallback, never a wrong read.)
-        row_gen = getattr(self._index, "row_generation", None)
-        batch_results = []  # type: list
-        cap = self.max_sweep_queries
-        for lo in range(0, len(flat), cap):
-            batch_results.extend(sweep(flat[lo : lo + cap], count))
-        out = []
-        off = 0
-        for q in queries:
-            n = len(q)
-            if n == 0:
-                out.append([])
-                continue
-            out.append(
-                self._score_query_asset(
-                    q, batch_results[off : off + n], limit, threshold, detailed, doc_freq_fn, total_assets, row_gen
+        # Spans (iscc_search_tpu_torch.tracing): this request's root and one
+        # "simprint.score" per query asset scored.
+        root = tracing.start("simprint.search")
+        try:
+            if len(self._index) == 0:
+                return [[] for _ in queries]
+            count = max(1, limit * self.oversampling_factor)
+            flat = [bytes(s) for q in queries for s in q]
+            if not flat:
+                return [[] for _ in queries]
+            sweep = sweep_fn or (lambda bodies, c: self._index.search(bodies, c, return_rows=True))
+            # Capture the row-space generation BEFORE the sweeps: a compact()
+            # racing the search renumbers rows, and body_at() must then fall back
+            # to query bytes instead of silently reading a different key's body.
+            # (Capturing early is the safe direction — worst case an unnecessary
+            # fallback, never a wrong read.)
+            row_gen = getattr(self._index, "row_generation", None)
+            batch_results = []  # type: list
+            cap = self.max_sweep_queries
+            for lo in range(0, len(flat), cap):
+                batch_results.extend(sweep(flat[lo : lo + cap], count))
+            out = []
+            off = 0
+            for q in queries:
+                n = len(q)
+                if n == 0:
+                    out.append([])
+                    continue
+                t0 = time.perf_counter_ns() if root is not None else 0
+                out.append(
+                    self._score_query_asset(
+                        q, batch_results[off : off + n], limit, threshold, detailed, doc_freq_fn, total_assets, row_gen
+                    )
                 )
-            )
-            off += n
-        return out
+                if root is not None:
+                    tracing.add("simprint.score", t0, time.perf_counter_ns())
+                off += n
+            return out
+        finally:
+            if root is not None:
+                tracing.stop(root, counts={"assets": len(queries)})
 
     def _score_query_asset(self, simprints, batch_results, limit, threshold, detailed, doc_freq_fn, total_assets, row_gen=None):
         # type: (list[bytes], list, int, float, bool, ..., int, int | None) -> list[ops.SimprintMatchRaw]

@@ -63,7 +63,8 @@ COPIES = {
     "models": ((), (), ()),
     "utils": ((), (), ()),
     "engine.simprint_ops": ((), (), ()),
-    "engine.batcher": ((), (), ()),
+    # the port's spans
+    "engine.batcher": (("_Pending.__init__", "SearchBatcher.search", "SearchBatcher._run_batch"), (), ()),
     "indexes.common": ((), (), ()),
     "server.metrics": ((), (), ()),
     "protocols.index": ((), (), ()),
@@ -130,8 +131,8 @@ COPIES = {
     # The shared library is built with g++ into build/, never with make
     # inside the package.
     "store.kv": (("_load_library",), ("_lib_is_fresh", "_build_library"), ("build_key", "_build_library")),
-    # The device argument.
-    "engine.simprint": (("SimprintEngine.__init__",), (), ()),
+    # The device argument; the port's spans (search_raw_many).
+    "engine.simprint": (("SimprintEngine.__init__", "SimprintEngine.search_raw_many"), (), ()),
     "indexes.tpu.index": (
         # The device argument (the index's and its engines').
         ("TpuIndex.__init__", "TpuIndex._new_nphd_index", "TpuIndex._new_simprint_index",
