@@ -13,6 +13,7 @@ from iscc_search_tpu_torch.engine import DeviceNphdIndex
 from iscc_search_tpu_torch.engine import device_index as di
 from iscc_search_tpu_torch.engine.batcher import SearchBatcher
 from iscc_search_tpu_torch.engine.simprint import SimprintEngine
+from iscc_search_tpu_torch.ops.nphd import NEG_SCORE
 from iscc_search_tpu_torch.server import metrics
 
 NAME, T0, T1, ID, PARENT, REQUEST, THREAD, COUNTS = range(8)
@@ -110,6 +111,26 @@ def test_a_search_records_its_root_and_four_children_in_order(index):
     # Every query gets min(K, live rows) candidates from each partition.
     assert kids[-1][COUNTS] == {"candidates": len(qs) * sum(min(K, live) for live in LIVE.values())}
     assert [len(keys) for keys, _ in out] == [K] * len(qs)
+
+
+def test_the_merge_counts_the_valid_slots_it_merges(index, monkeypatch):
+    """search.merge's candidates are the valid slots (row >= 0) of every
+    partition's first K columns, with a query that has none."""
+    scan, valid_slots = di.blockmax_topk_packedq_impl, []
+
+    def scan_without_query_0(*args, **kwargs):
+        scores, rows = (t.clone() for t in scan(*args, **kwargs))
+        scores[0], rows[0] = NEG_SCORE, -1
+        valid_slots.append(int(torch.count_nonzero(rows[:, :K] >= 0)))
+        return scores, rows
+
+    monkeypatch.setattr(di, "blockmax_topk_packedq_impl", scan_without_query_0)
+    tracing.enable()
+    out = index.search(queries(6), K)
+    (merge,) = [r for r in records() if r[NAME] == "search.merge"]
+    assert len(valid_slots) == len(LIVE) and merge[COUNTS] == {"candidates": sum(valid_slots)}
+    assert sum(valid_slots) == 5 * sum(min(K, live) for live in LIVE.values())
+    assert [len(keys) for keys, _ in out] == [0] + [K] * 5
 
 
 def test_a_failing_search_closes_its_span(index, monkeypatch):
