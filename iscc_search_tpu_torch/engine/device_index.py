@@ -76,7 +76,7 @@ from iscc_search_tpu_torch import tracing
 from iscc_search_tpu_torch.ops.hopper_scan import blockmax_topk_packedq_impl
 from iscc_search_tpu_torch.ops.packing import MAX_LANES, pack_codes, unpack_code
 from iscc_search_tpu_torch.ops.pm1_scan import query_prefix
-from iscc_search_tpu_torch.parallel.merge import merge_shards
+from iscc_search_tpu_torch.parallel.merge import merge_shards, scan_shards
 from iscc_search_tpu_torch.parallel.pallas_sharded import shard_unpacked_db, sharded_pallas_topk
 from iscc_search_tpu_torch.parallel.pm1_sharded import shard_pm1_database
 
@@ -870,7 +870,7 @@ class PackedCodeIndex:
         # type: (list[bytes], int, bool) -> list[tuple]
         # Spans (iscc_search_tpu_torch.tracing): "search" and, one after the
         # other, its children prepare and launch here, wait and merge in
-        # _collect_results.
+        # _collect_results; on a mesh, mesh.scan and mesh.merge under launch.
         root = tracing.start("search")
         try:
             with self._lock:
@@ -886,22 +886,27 @@ class PackedCodeIndex:
             q_codes, q_lanes = pack_codes([self._vector_bytes(b) for b in query_bodies], self.max_lanes)
             q_codes_dev = _to_device(q_codes, self.device)
             q_lanes_dev = _to_device(q_lanes, self.device)
+            launch = None
             if root is not None:
                 t = time.perf_counter_ns()
                 tracing.add("search.prepare", root.t0, t)
+                # Open, so that the mesh's spans (parallel/merge.py) nest under it.
+                launch = tracing.start("search.launch", t)
             pending = []
-            for lanes in sorted(partitions):
-                packed_dev, valid_dev, unpacked_dev, row_map, cap = partitions[lanes]
-                if self.mesh is None:
-                    scores, rows = blockmax_topk_packedq_impl(q_codes_dev, q_lanes_dev, packed_dev, valid_dev,
-                                                              _scan_k(cap, count), lanes * 32,
-                                                              phase1=self._phase1(len(query_bodies), lanes))
-                else:
-                    scores, rows = self._mesh_scan(q_codes_dev, q_lanes_dev, packed_dev, valid_dev, unpacked_dev,
-                                                   cap, lanes, count)
-                pending.append((row_map, scores, rows))
-            if root is not None:
-                tracing.add("search.launch", t, time.perf_counter_ns())
+            try:
+                for lanes in sorted(partitions):
+                    packed_dev, valid_dev, unpacked_dev, row_map, cap = partitions[lanes]
+                    if self.mesh is None:
+                        scores, rows = blockmax_topk_packedq_impl(q_codes_dev, q_lanes_dev, packed_dev, valid_dev,
+                                                                  _scan_k(cap, count), lanes * 32,
+                                                                  phase1=self._phase1(len(query_bodies), lanes))
+                    else:
+                        scores, rows = self._mesh_scan(q_codes_dev, q_lanes_dev, packed_dev, valid_dev,
+                                                       unpacked_dev, cap, lanes, count)
+                    pending.append((row_map, scores, rows))
+            finally:
+                if launch is not None:
+                    tracing.stop(launch)
             return self._collect_results(pending, len(query_bodies), count, keys_snapshot, return_rows, root)
         finally:
             if root is not None:
@@ -936,10 +941,8 @@ class PackedCodeIndex:
         """The kernel route on the mesh: the single-device scan on each of
         this process's shards (on its device), rows lifted to the
         partition's global rows, then the merge (across processes too)."""
-        parts = [
-            blockmax_topk_packedq_impl(q_codes.to(p.device), q_lanes.to(p.device), p, v, k, lanes * 32, phase1=phase1)
-            for p, v in zip(packed_shards, valid_shards)
-        ]
+        parts = scan_shards(self.mesh, packed_shards[0].shape[0], lambda i, d: blockmax_topk_packedq_impl(
+            q_codes.to(d), q_lanes.to(d), packed_shards[i], valid_shards[i], k, lanes * 32, phase1=phase1))
         merge_k = min(_pow2ceil(max(1, count)), k * self.mesh.size)
         return merge_shards(self.mesh, parts, packed_shards[0].shape[0], merge_k)
 

@@ -13,13 +13,18 @@ processes, however many shards each holds.
 
 The JAX helpers run inside a ``shard_map`` body and take the mesh's axis
 tuple; these take the :class:`~iscc_search_tpu_torch.parallel.mesh.Mesh`
-and lists of this process's shards.
+and lists of this process's shards. While spans are recorded
+(:mod:`iscc_search_tpu_torch.tracing`), :func:`scan_shards` records one
+``mesh.scan`` per shard and :func:`merge_shards` one ``mesh.merge``.
 """
 
 from __future__ import annotations
 
+import time
+
 import torch
 
+from iscc_search_tpu_torch import tracing
 from iscc_search_tpu_torch.ops.nphd import NEG_SCORE
 
 
@@ -55,14 +60,42 @@ def _all_gather(t, group):
     return torch.cat(parts, dim=1).to(t.device)
 
 
+def scan_shards(mesh, local_rows, scan):
+    # type: (Mesh, int, Callable[[int, torch.device], tuple]) -> list[tuple]
+    """``scan(i, device)`` of each of this process's shards, in the order of
+    ``mesh.devices``: one thread enqueues every shard's scan on its device.
+    While spans are recorded, each call is a ``mesh.scan`` span (counts
+    ``shard``, the flat shard id, and ``rows``, ``local_rows``: the shard's
+    scanned capacity)."""
+    recording = tracing.recording()
+    parts = []
+    for i, d in enumerate(mesh.devices):
+        t0 = time.perf_counter_ns() if recording else 0
+        parts.append(scan(i, d))
+        if recording:
+            tracing.add("mesh.scan", t0, time.perf_counter_ns(),
+                        {"shard": flat_shard_index(mesh, i), "rows": local_rows})
+    return parts
+
+
 def merge_shards(mesh, parts, local_rows, merge_k):
     # type: (Mesh, list[tuple], int, int) -> tuple
     """:func:`lift_rows` + :func:`merge_topk` of this process's shards'
     ``(scores, local rows)`` pairs, in the order of ``mesh.devices``, each
-    shard holding ``local_rows`` rows."""
+    shard holding ``local_rows`` rows. While spans are recorded, one
+    ``mesh.merge`` span (counts ``candidates``, the shards' candidates
+    merged, and ``bytes``, their scores and rows that move to the lead
+    device from another device)."""
+    t0 = time.perf_counter_ns() if tracing.recording() else None
     scores = [s for s, _ in parts]
     idx = [lift_rows(r, local_rows, flat_shard_index(mesh, i)) for i, (_, r) in enumerate(parts)]
-    return merge_topk(scores, idx, mesh, merge_k)
+    merged = merge_topk(scores, idx, mesh, merge_k)
+    if t0 is not None:
+        lead = scores[0].device  # shard 0 lies on the lead device
+        moved = sum(s.nbytes + i.nbytes for s, i in zip(scores, idx) if s.device != lead)
+        tracing.add("mesh.merge", t0, time.perf_counter_ns(),
+                    {"candidates": sum(s.numel() for s in scores), "bytes": moved})
+    return merged
 
 
 def merge_topk(scores, idx, mesh, merge_k):

@@ -21,7 +21,7 @@ there is no ``interpret``.
 from __future__ import annotations
 
 from iscc_search_tpu_torch.ops import hopper_scan
-from iscc_search_tpu_torch.parallel.merge import merge_shards
+from iscc_search_tpu_torch.parallel.merge import merge_shards, scan_shards
 
 
 def shard_unpacked_db(mesh, db_packed_sharded, nbits):
@@ -54,9 +54,7 @@ def sharded_pallas_topk(mesh, q_packed, min_lanes, q_scale, db_packed, db_unpack
         raise ValueError("sharded_pallas_topk needs the int8 twin")
     if db_packed[0].shape[1] * 32 != nbits:
         raise ValueError(f"db_packed shards {tuple(db_packed[0].shape)} are not a {nbits}-bit partition")
-    parts = [
-        hopper_scan.blockmax_topk_impl(q_packed.to(d), min_lanes.to(d), q_scale.to(d), db_packed[i], db_valid[i], k,
-                                       db_unpacked=db_unpacked[i], unpacked=True)
-        for i, d in enumerate(mesh.devices)
-    ]
+    parts = scan_shards(mesh, db_packed[0].shape[0], lambda i, d: hopper_scan.blockmax_topk_impl(
+        q_packed.to(d), min_lanes.to(d), q_scale.to(d), db_packed[i], db_valid[i], k, db_unpacked=db_unpacked[i],
+        unpacked=True))
     return merge_shards(mesh, parts, db_packed[0].shape[0], merge_k or k)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import functools
 
 from iscc_search_tpu_torch.ops.pm1_scan import pm1_blockmax_topk_impl, pm1_topk_impl
-from iscc_search_tpu_torch.parallel.merge import merge_shards
+from iscc_search_tpu_torch.parallel.merge import merge_shards, scan_shards
 from iscc_search_tpu_torch.parallel.mesh import place_rows
 
 
@@ -58,8 +58,6 @@ def sharded_pm1_topk(
     """
     scan = pm1_blockmax_topk_impl if recall_target is None else functools.partial(pm1_topk_impl,
                                                                                   recall_target=recall_target)
-    parts = [
-        scan(q_pm1.to(d), q_scale.to(d), db_packed[i], db_valid[i], k, nbits, chunk_size=chunk_size)
-        for i, d in enumerate(mesh.devices)
-    ]
+    parts = scan_shards(mesh, db_packed[0].shape[0], lambda i, d: scan(
+        q_pm1.to(d), q_scale.to(d), db_packed[i], db_valid[i], k, nbits, chunk_size=chunk_size))
     return merge_shards(mesh, parts, db_packed[0].shape[0], merge_k or k)

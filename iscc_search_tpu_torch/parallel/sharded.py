@@ -12,7 +12,7 @@ The merge moves only ``n_shards x k`` candidates per query.
 from __future__ import annotations
 
 from iscc_search_tpu_torch.ops.topk import topk_scan_impl
-from iscc_search_tpu_torch.parallel.merge import merge_shards
+from iscc_search_tpu_torch.parallel.merge import merge_shards, scan_shards
 from iscc_search_tpu_torch.parallel.mesh import SHARD_AXIS, place_rows
 
 
@@ -61,9 +61,6 @@ def sharded_topk(
     :param k: results per query
     :return: (scores (Q, merge_k or k), global rows of the same width) on the lead device
     """
-    parts = [
-        topk_scan_impl(q_codes.to(d), q_lanes.to(d), db_codes[i], db_lanes[i], db_valid[i], k, chunk_size, metric,
-                       ndim_bits)
-        for i, d in enumerate(mesh.devices)
-    ]
+    parts = scan_shards(mesh, db_codes[0].shape[0], lambda i, d: topk_scan_impl(
+        q_codes.to(d), q_lanes.to(d), db_codes[i], db_lanes[i], db_valid[i], k, chunk_size, metric, ndim_bits))
     return merge_shards(mesh, parts, db_codes[0].shape[0], merge_k or k)

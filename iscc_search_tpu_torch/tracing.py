@@ -30,6 +30,14 @@ The spans (README.md, "Tracing the search path"):
   ``search.launch`` (every partition's scan enqueued), ``search.wait`` (the
   readbacks queued and the stream waited for) and ``search.merge`` (the
   per-query merge on the host; count ``candidates`` read back and merged);
+- on a mesh, from every sharded scan of :mod:`iscc_search_tpu_torch.parallel`,
+  under ``search.launch`` in an index's search (``PackedCodeIndex(mesh=...)``):
+  one ``mesh.scan`` per shard and partition (the shard's scan enqueued on
+  its device; counts ``shard``, the flat shard id, and ``rows``, the
+  shard's scanned capacity) and one ``mesh.merge`` per partition (the
+  shards' candidates moved to the lead device, concatenated and cut to the
+  top-k; counts ``candidates``, the shards' candidates merged, and
+  ``bytes``, the scores and rows that moved from another device);
 - ``batcher.queue`` (a caller's enqueue to the start of the sweep that
   serves it), ``batcher.sweep`` (the fused sweep, parent of ``search``;
   counts ``queries`` and ``served``, the request ids of its callers) and
