@@ -39,13 +39,21 @@ Phases (each prints its lines; any failure raises and exits non-zero):
    kk=2,048 (phase 9); the product's chunk partition at Q=100, kk=512 and
    Q=64, kk=4,096 (phase 10). The table of all points is printed before the
    JSON summary;
+   select  — ``select_rescore_topk`` (phases 2-3 in one launch) beside the
+   chain of PyTorch calls it replaces (``select_rescore_topk_plain``) at
+   config 3's four partitions and at a ``c5_mesh4`` shard of the 256-bit
+   partition, Q=512, kk=16: the kernel held to the chain's contract and to
+   its mirrored flow, both timed by CUDA-graph replays and paced by the
+   host, beside the bound (``select_work``). ``--select-only`` runs the
+   device, build and select phases alone;
 4. slice   — ``DeviceNphdIndex(path, device="cuda")`` (``scan_kernel``
    left at ``"auto"``) filled through ``add_packed``, 1/64 of the keys
    removed, 4,096 rows appended through ``add``, then ``search`` of 512
    live rows at k=10: self-match at rank 0 with score 1.0, the top-10 of 16
    sampled queries against brute-force ``nphd_scores`` over the whole
    database, no removed key returned, and the search launched the phase-1
-   kernels ``auto_phase1`` names and ``gather_rescore``, and no other;
+   kernels ``auto_phase1`` names and the phases 2-3 kernel of each scan's
+   route (``select_rescore_topk`` or ``gather_rescore``), and no other;
 5. twin    — the int8-twin route over the engine's own four partitions:
    ``build_unpacked_db`` on the card (seconds and bytes printed), then
    ``blockmax_topk_packedq_impl(..., db_unpacked=twin, unpacked=True)``
@@ -334,7 +342,7 @@ from iscc_search_tpu_torch.indexes.tpu import TpuIndex
 from iscc_search_tpu_torch.models import IsccID, IsccUnit
 from iscc_search_tpu_torch.ops import _build, bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
-from iscc_search_tpu_torch.ops import wgmma_layout
+from iscc_search_tpu_torch.ops import select_layout, wgmma_layout
 from iscc_search_tpu_torch.ops.nphd import hamming_scores, nphd_scores
 from iscc_search_tpu_torch.ops.packing import pack_codes
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, prepare_queries, query_prefix, topk_blocks_hier
@@ -462,7 +470,9 @@ PRODUCT_T0 = 1_700_000_000_000_000  # ISCC-ID timestamps (microseconds) of the p
 PRODUCT_BASE, PRODUCT_NAME = "product_base", "product"  # the product index's base directory and name
 SERVER_NEW_ASSETS, SERVER_CHUNK = 1000, 100  # assets added over HTTP, in RemoteIndex batches of this size
 SERVER_KV_ASSETS = 100  # assets of the memory:// and kv:// round trips
-PATH_KERNELS = ("blockmax", "blockmax_mma_packed", "blockmax_small", "gather_rescore")  # what a search launches
+# What a search launches: a phase-1 kernel, then select_rescore_topk (the fused route) or gather_rescore (the chain).
+PATH_KERNELS = ("blockmax", "blockmax_mma_packed", "blockmax_small", "gather_rescore", "select_rescore_topk")
+PHASE23_KERNELS = {"fused": "select_rescore_topk", "chain": "gather_rescore"}  # hs.scan_route -> what it launches
 GATHER_REPS = 20  # CUDA-graph-captured calls per form and [gather] point
 # The [gather] ladder: synthetic random partitions at the product's capacity,
 # Q=64, candidate blocks per query from reuse ~0.5 to ~15, at every width.
@@ -799,6 +809,65 @@ def phase_gather(rng, dev):
             + ", ".join(f"kk={p['kk']} (reuse {p['reuse']:.2f}) {p['query_ms']:.4f} / {p['block_ms']:.4f}" for p in mine)
             + f"; block-major faster at reuse {', '.join(f'{r:.2f}' for r in wins) or 'none'}; the table's "
             f"threshold {hs.GATHER_BLOCK_REUSE[nbits // 32]}")
+    return points
+
+
+def select_work(nq, nblocks, kk, lanes, out_k):
+    """(bytes, operations) of phases 2-3 in one launch: each query's row of
+    block maxima read once, its candidate rows (words and validity) read
+    once, the queries (words, prefix lanes, scale) read once and the (nq,
+    out_k) scores and rows written once; one popc per (candidate row, lane)."""
+    nbytes = nq * nblocks * 4 + nq * kk * 128 * (lanes * 4 + 1) + nq * (lanes * 4 + 8) + nq * out_k * 8
+    return nbytes, nq * kk * 128 * lanes
+
+
+def phase_select(rng, dev, part_rows):
+    """[select]: ``select_rescore_topk`` (phases 2-3 in one launch) beside
+    the chain it replaces (``select_rescore_topk_plain``) at config 3's four
+    partitions and at a ``c5_mesh4`` shard of the 256-bit partition (a
+    power-of-two shard of 104,857,600 codes' 41.9M 256-bit rows), Q=512,
+    kk=16 (count 10): block maxima of random rows by ``blockmax_mma_packed``,
+    the kernel's output held to the chain's contract and to its mirrored
+    flow on 16 queries (``ops/select_layout.py``); the kernel's time by
+    CUDA-graph replays (the device's clock) and paced by the host, the
+    chain's both ways, beside the bound (``select_work``). Returns the
+    points."""
+    shard_rows = _pow2ceil(-(-int(N_ROWS * 10 * LANE_P[-1]) // MESH_SHARDS))
+    points = []
+    shapes = [(f"config3 {lanes * 32}-bit", lanes, _cap_rows(n), n) for lanes, n in sorted(part_rows.items())]
+    shapes.append(("c5 shard 256-bit", 8, shard_rows, int(N_ROWS * 10 * LANE_P[-1]) // MESH_SHARDS))
+    for label, lanes, cap, n_live in shapes:
+        q_packed, min_lanes, q_scale, db, valid, _ = _case(
+            rng, dev, lanes * 32, cap=cap, nq=N_QUERIES, n_live=n_live, kk=KK, tombstone_every=TOMBSTONE_EVERY)
+        block_max = hs.blockmax_mma_packed(q_packed, min_lanes, q_scale, db, valid)
+        args = (q_packed, min_lanes, q_scale, block_max, db, valid, KK, KK)
+        got = hs.select_rescore_topk(*args)
+        want = hs.select_rescore_topk_plain(*args)
+        sync(dev)
+        select_layout.check_contract(*got, want[0], q_packed, min_lanes, q_scale, db, valid)
+        if dev.type == "cuda":  # on the CPU the wrapper takes the chain, whose ties fall otherwise
+            host = [t[:16].cpu().numpy() for t in args[:4]]
+            mirror = select_layout.select_rescore(*host, db.cpu().numpy(), valid.cpu().numpy(), KK, KK)
+            if not all(np.array_equal(g[:16].cpu().numpy(), m) for g, m in zip(got, mirror)):
+                raise AssertionError(f"[select] {label}: the kernel differs from its mirrored flow")
+        nblocks = cap // hs.BLOCK
+        nbytes, ops = select_work(N_QUERIES, nblocks, KK, lanes, KK)
+        bound_ms, bound_by = bound(nbytes, ops, popc_per_s())
+        kernel = functools.partial(hs.select_rescore_topk, *args)
+        chain = functools.partial(hs.select_rescore_topk_plain, *args)
+        ms = {"kernel": time_ms(kernel, dev, GATHER_REPS, graph=True), "kernel_host": time_ms(kernel, dev, GATHER_REPS),
+              "chain": time_ms(chain, dev, GATHER_REPS, graph=True), "chain_host": time_ms(chain, dev, GATHER_REPS)}
+        log(f"[select] {label}: cap {cap}, Q={N_QUERIES}, kk={KK}: kernel {ms['kernel']:.4f} ms "
+            f"({100 * bound_ms / ms['kernel']:.1f}% of bound; host-paced {ms['kernel_host']:.4f}), chain "
+            f"{ms['chain']:.4f} ms (host-paced {ms['chain_host']:.4f}), bound {bound_ms:.4f} ms by {bound_by} "
+            f"({nbytes:.4g} bytes); kernel == chain's contract" + (" and its mirrored flow" if dev.type == "cuda" else ""))
+        points.append({"point": label, "q": N_QUERIES, "kk": KK, "cap": cap, "lanes": lanes, **ms,
+                       "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / ms["kernel"]})
+        del q_packed, min_lanes, q_scale, db, valid, block_max, args, got, want
+    c3 = [p for p in points if p["point"].startswith("config3")]
+    log(f"[select] config 3 sweep of four partitions: kernel {sum(p['kernel'] for p in c3):.4f} ms "
+        f"(host-paced {sum(p['kernel_host'] for p in c3):.4f}), chain {sum(p['chain'] for p in c3):.4f} ms "
+        f"(host-paced {sum(p['chain_host'] for p in c3):.4f}), bound {sum(p['bound_ms'] for p in c3):.4f} ms")
     return points
 
 
@@ -1978,14 +2047,15 @@ def sync(dev):
 
 
 def spy_routes():
-    """Record (Q, lanes, phase1) of every partition scan the engine makes
-    (its call of ``blockmax_topk_packedq_impl``) until ``stop()`` is called.
-    Returns (the list of scans, stop)."""
+    """Record (Q, lanes, phase1, route of phases 2-3) of every partition
+    scan the engine makes (its call of ``blockmax_topk_packedq_impl``) until
+    ``stop()`` is called. Returns (the list of scans, stop)."""
     seen = []
     real = device_index.blockmax_topk_packedq_impl
 
     def spy(*args, phase1, **kwargs):
-        seen.append((args[0].shape[0], args[5] // 32, phase1))
+        db, k = args[2], args[4]
+        seen.append((args[0].shape[0], args[5] // 32, phase1, hs.scan_route(db.device, k, db.shape[0])))
         return real(*args, phase1=phase1, **kwargs)
 
     def stop():
@@ -2020,14 +2090,15 @@ def spy_calls(names):
 def check_path_launches(label, dev, launches, scans, forms=None):
     """Raise unless every scan of ``scans`` (``spy_routes()``) took the phase-1
     kernel ``auto_phase1`` names for its batch and width and, on a card, the
-    path launched each kernel so named and ``gather_rescore``, and no other
-    phase-1 kernel. ``forms``: ``gather_rescore``'s calls by form where the
-    path ran in other processes (else this process's). Returns ``launches``."""
-    for nq, lanes, phase1 in scans:
+    path launched each kernel so named and each phases 2-3 kernel its scans'
+    routes name (``PHASE23_KERNELS``), and no other. ``forms``:
+    ``gather_rescore``'s calls by form where the path ran in other processes
+    (else this process's). Returns ``launches``."""
+    for nq, lanes, phase1, _ in scans:
         if phase1 != auto_phase1(nq, lanes):
             raise AssertionError(f"{label}: a Q={nq} scan of a {lanes * 32}-bit partition took {phase1!r}, "
                                  f"'auto' names {auto_phase1(nq, lanes)!r}")
-    named = {hs.PHASE1[phase1].__name__ for _, _, phase1 in scans} | {"gather_rescore"}
+    named = {hs.PHASE1[phase1].__name__ for _, _, phase1, _ in scans} | {PHASE23_KERNELS[r] for *_, r in scans}
     PATH_FORMS[label] = dict(hs.gather_rescore.by_form if forms is None else forms)
     if dev.type == "cuda":
         for name in PATH_KERNELS:
@@ -2040,7 +2111,7 @@ def check_path_launches(label, dev, launches, scans, forms=None):
 
 
 def reset_launches():
-    for fn in (*hs.PHASE1.values(), hs.gather_rescore):
+    for fn in (*hs.PHASE1.values(), hs.gather_rescore, hs.select_rescore_topk):
         fn.launches = 0
     hs.gather_rescore.by_form = dict.fromkeys(hs.GATHER_FORMS, 0)
 
@@ -2053,7 +2124,7 @@ def read_launches():
 def uncounted():
     """Launches inside the block are not the path's: the counts are put back
     as they were (kernel-against-plain checks made within a path's run)."""
-    saved = {fn: fn.launches for fn in (*hs.PHASE1.values(), hs.gather_rescore)}
+    saved = {fn: fn.launches for fn in (*hs.PHASE1.values(), hs.gather_rescore, hs.select_rescore_topk)}
     forms = dict(hs.gather_rescore.by_form)
     try:
         yield
@@ -2342,7 +2413,7 @@ def phase_simprint(rng, dev, tmp, n_assets=C4_ASSETS, chunks=C4_CHUNKS, trials=C
         stop()
     launches = check_path_launches("[simprint]", dev, read_launches(), scans)
     log(f"[simprint] kernel launches of the path (first search and every timed search): {launches}, for sweeps of "
-        f"Q in {sorted({nq for nq, _, _ in scans})}; device memory {device_memory(dev)}")
+        f"Q in {sorted({nq for nq, *_ in scans})}; device memory {device_memory(dev)}")
     log(f"[simprint] every matched chunk's score == XOR + popcount on the host, every planted asset at rank 0 with "
         f"all its live chunks matched, every asset score == its recomputation from the chunks, no removed chunk returned")
     stats = simprint_kernel_stats(dev, engine, planted, widths, batches)
@@ -2769,7 +2840,7 @@ def phase_product(rng, dev, tmp, n_assets=PRODUCT_ASSETS, n_sp=PRODUCT_SIMPRINTS
         counted += reps
     per_search = {name: n / counted for name, n in read_launches().items()}
     log(f"[product] kernel launches per device search_assets call (mean of {counted}): {per_search}, for scans of "
-        f"(Q, lanes) in {sorted({(nq, lanes) for nq, lanes, _ in scans})}")
+        f"(Q, lanes) in {sorted({(nq, lanes) for nq, lanes, *_ in scans})}")
 
     # Concurrent clients: the batcher fuses their sweeps; answers equal the sequential ones.
     work = [originals[1 + reps + j] for j in range(clients * per_client)]
@@ -3833,8 +3904,8 @@ def phase_scaleout(rng, dev, tmp, truth, server, n_new=SERVER_NEW_ASSETS, n_sp=P
             raise AssertionError(f"[scaleout] {len(missing)} assets added over HTTP are not found, e.g. {missing[:3]}")
         stop_spy()
         launches = check_path_launches("[scaleout]", dev, read_launches(), scans)
-        if dev.type == "cuda" and not (launches["gather_rescore"] > 0 and sum(
-                launches[k] for k in PATH_KERNELS if k != "gather_rescore") > 0):
+        phase23 = sum(launches[k] for k in PHASE23_KERNELS.values())
+        if dev.type == "cuda" and not (phase23 > 0 and sum(launches[k] for k in PATH_KERNELS) > phase23):
             raise AssertionError(f"[scaleout] the path launched {launches}")
         batch = [schema.IsccEntry(**a) for a in new_wire[:SERVER_CHUNK]]
         t1 = time.perf_counter()
@@ -4333,7 +4404,7 @@ def phase_aggregator(rng, dev, tmp, n_records=HUB0_RECORDS, grow=HUB_GROW, sampl
 
 
 def phase3_split(dev, part, flat, kk, out_k):
-    """Device time of one slice of phases 2-3 (``hopper_scan._rescore_topk``)
+    """Device time of one slice of phases 2-3 (``hopper_scan.select_rescore_topk_plain``)
     on the path's partition ``part`` for the chunk queries ``flat``, split
     by part, each timed alone on the same inputs: phase 2
     (``topk_blocks_hier``), the candidate rows and validity,
@@ -4373,7 +4444,7 @@ def phase3_split(dev, part, flat, kk, out_k):
         "torch.topk": time_ms(lambda: torch.topk(scores, out_k, dim=1), dev, reps),
         "row torch.gather": time_ms(lambda: torch.gather(rows, 1, pos), dev, reps),
     }
-    whole = functools.partial(hs._rescore_topk, q_packed, min_lanes, q_scale, block_max, db, valid, kk, out_k)
+    whole = functools.partial(hs.select_rescore_topk_plain, q_packed, min_lanes, q_scale, block_max, db, valid, kk, out_k)
     ms["whole slice"] = time_ms(whole, dev, reps)
     log(f"[product] phase 3 of one limit-100 slice (Q={nq}, kk={kk}, top-{out_k} of {width} columns), ms by part: "
         + ", ".join(f"{name} {v:.4f}" for name, v in ms.items())
@@ -4701,6 +4772,8 @@ def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--seed", type=int, default=0, help="seed of the generated codes and queries")
     parser.add_argument("--profile", action="store_true", help="also profile warm searches (device time by kernel)")
+    parser.add_argument("--select-only", action="store_true",
+                        help="run the device, build and [select] phases only (phases 2-3 in one launch)")
     parser.add_argument("--mesh-worker", nargs=6, metavar=("DIR", "RANK", "WORLD", "PORT", "DEVICE", "CHIPS"),
                         help="run one process of a [mesh] cluster (started by the [mesh] phase)")
     parser.add_argument("--multihost-worker", nargs=5, metavar=("DIR", "RANK", "PORT", "CONTROL_PORT", "DEVICE"),
@@ -4723,8 +4796,13 @@ def main():
     codes, lanes = random_codes(rng, N_ROWS)
     part_rows = {int(lv): int(c) for lv, c in zip(*np.unique(lanes, return_counts=True))}
     log(f"[data] {N_ROWS} codes, rows per lane count: {part_rows}")
+    if args.select_only:
+        print(json.dumps({"select": phase_select(rng, dev, part_rows), "ok": True,
+                          "device": {"kind": torch.cuda.get_device_name(0), "smi": CARD["smi"]}}))
+        return
     stats = phase_kernels(rng, dev, part_rows)
     gather_ladder = phase_gather(rng, dev)
+    select_points = phase_select(rng, dev, part_rows)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         slice_launches, idx, queries, oracle = phase_slice(rng, dev, codes, lanes, Path(tmp) / "config3")
         del codes, lanes
@@ -4818,6 +4896,9 @@ def main():
             entry["mesh_launches_by_source"] = {src: TWIN_LAUNCHES[f"mesh {src}"] for src in ("searches", "direct calls")}
             entry["at_mesh_shapes"] = mesh_kernel4
         summary.append(entry)
+    summary.append({"name": "select_rescore_topk", "route": "cuda", "source": "iscc_search_tpu_torch/csrc/select_rescore.cu",
+                    "replaces": None, "launches_by_path": {path: counts["select_rescore_topk"] for path, counts in by_path.items()},
+                    "by_point": select_points})
     print(json.dumps({"kernels": summary}))
     print(json.dumps({
         "ok": True,

@@ -73,6 +73,7 @@ import numpy as np
 import torch
 
 from iscc_search_tpu_torch import tracing
+from iscc_search_tpu_torch.ops import hopper_scan
 from iscc_search_tpu_torch.ops.hopper_scan import blockmax_topk_packedq_impl
 from iscc_search_tpu_torch.ops.packing import MAX_LANES, pack_codes, unpack_code
 from iscc_search_tpu_torch.ops.pm1_scan import query_prefix
@@ -871,6 +872,8 @@ class PackedCodeIndex:
         # Spans (iscc_search_tpu_torch.tracing): "search" and, one after the
         # other, its children prepare and launch here, wait and merge in
         # _collect_results; on a mesh, mesh.scan and mesh.merge under launch.
+        # The launch counts "fused_scans", the scans (a mesh: shard scans)
+        # whose phases 2-3 take one launch, where there are any.
         root = tracing.start("search")
         try:
             with self._lock:
@@ -893,6 +896,7 @@ class PackedCodeIndex:
                 # Open, so that the mesh's spans (parallel/merge.py) nest under it.
                 launch = tracing.start("search.launch", t)
             pending = []
+            fused = 0
             try:
                 for lanes in sorted(partitions):
                     packed_dev, valid_dev, unpacked_dev, row_map, cap = partitions[lanes]
@@ -904,13 +908,25 @@ class PackedCodeIndex:
                         scores, rows = self._mesh_scan(q_codes_dev, q_lanes_dev, packed_dev, valid_dev,
                                                        unpacked_dev, cap, lanes, count)
                     pending.append((row_map, scores, rows))
+                    if launch is not None:
+                        fused += self._fused_scans(packed_dev, cap, count)
             finally:
                 if launch is not None:
-                    tracing.stop(launch)
+                    tracing.stop(launch, counts={"fused_scans": fused} if fused else None)
             return self._collect_results(pending, len(query_bodies), count, keys_snapshot, return_rows, root)
         finally:
             if root is not None:
                 tracing.stop(root, counts={"queries": len(query_bodies)})
+
+    def _fused_scans(self, packed, cap, count):
+        # type: (torch.Tensor | list[torch.Tensor], int, int) -> int
+        """How many of one partition's scans for ``count`` results take
+        the fused phases 2-3 (``hopper_scan.scan_route``): its one scan, or
+        on a mesh each of this process's shard scans."""
+        if self.mesh is None:
+            return int(hopper_scan.scan_route(packed.device, _scan_k(cap, count), cap) == "fused")
+        k = _scan_k(cap // self.mesh.size, count)
+        return sum(hopper_scan.scan_route(shard.device, k, shard.shape[0]) == "fused" for shard in packed)
 
     def _phase1(self, nq, lanes):
         # type: (int, int) -> str

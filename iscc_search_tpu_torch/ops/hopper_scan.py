@@ -25,6 +25,13 @@ hand-written Hopper kernels (port of the Pallas path of
   thread block per (query, candidate block), and block-major, which sorts
   the pairs by block on the card and reads each chosen block once for all
   the queries that chose it (its flow is mirrored in ``ops/gather_layout.py``).
+- :func:`select_rescore_topk` (phases 2-3 in one launch,
+  ``csrc/select_rescore.cu``) replaces no Pallas kernel: it does the work of
+  the chain of PyTorch calls around :func:`gather_rescore` (phase 2's
+  ``topk_blocks_hier``, the candidate rows and validity, the score epilogue,
+  ``torch.topk``; :func:`select_rescore_topk_plain`) where a query's
+  candidate rows fit its shared memory, and :func:`blockmax_topk_impl`
+  takes it there (:func:`scan_route`).
 
 The four phase-1 wrappers compute one function, bit for bit, and
 :func:`blockmax_topk_impl` takes any of them by name (``phase1``, a key of
@@ -79,6 +86,13 @@ PHASE3_ROW_BYTES = 32
 # widths. The sweep fails when the table goes stale.
 GATHER_BLOCK_REUSE = {lanes: 2.0 for lanes in range(1, MAX_LANES + 1)}
 GATHER_FORMS = ("query", "block")
+# Phases 2-3 of a scan in one launch (select_rescore_topk) where a query's
+# kk * 128 candidate rows fit the kernel's shared memory: their 4-byte keys
+# in a static array of 8,192 (32 KB), beside the per-warp bin counts (8 KB),
+# within the 48 KB a thread block takes without opting in; so kk <= 64.
+# Larger kk takes the chain of PyTorch calls (select_rescore_topk_plain).
+FUSED_MAX_CANDIDATES = 8192
+SCAN_ROUTES = ("fused", "chain")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -93,6 +107,8 @@ _SIGNATURES = {
     "iscc_gather_rescore": (_P, _I, _P, _P, _I, _I, _P, _I, _P, _P),
     # q, q_stride, min_lanes, block_ids, nq, kk, db, nblocks, lanes, workspace, words, out, stream
     "iscc_gather_rescore_blocks": (_P, _I, _P, _P, _I, _I, _P, _I, _I, _P, ctypes.c_longlong, _P, _P),
+    # q, q_stride, min_lanes, q_scale, block_max, nq, nblocks, kk, out_k, db, valid, lanes, scores, rows, stream
+    "iscc_select_rescore": (_P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _P, _I, _P, _P, _P),
     # The phase-1 experiments (iscc_search_tpu_torch/experiments):
     # epi, q, q_scale, nq, db, pen, nrows, db_wrap, out, stream
     "iscc_blockmax_variant": (_I, _P, _P, _I, _P, _P, _I, _I, _P, _P),
@@ -407,7 +423,10 @@ def blockmax_topk_impl(
     """
     Exact top-k of one partition: phase 1 block maxima -> hierarchical top-k
     blocks -> phase 3 gather rescore -> final top-k (contract of
-    ``pallas_blockmax_topk_impl``).
+    ``pallas_blockmax_topk_impl``). Phases 2-3 take the route
+    :func:`scan_route` names: one launch of :func:`select_rescore_topk`, or
+    the chain :func:`select_rescore_topk_plain` (counted on
+    ``select_rescore_topk.by_route``).
 
     :param db_packed: (cap, lanes) int32 packed partition
     :param db_valid: (cap,) uint8 validity
@@ -436,31 +455,50 @@ def blockmax_topk_impl(
     block_max = PHASE1[phase1](q_packed, min_lanes, q_scale, db, db_valid)
     kk = min(k, total_blocks)
     out_k = min(k, kk * BLOCK)
-    # Phases 2 and 3 hold (Q, kk * 128) candidates: they run over slices of
-    # the queries that fit PHASE3_BUDGET_BYTES. Each query's candidates are
-    # its own, so the scores do not depend on the slicing. Which rows tied
-    # at the cut are kept follows torch.topk, whose CUDA algorithm (and with
-    # it the tie order) is chosen by shape, the number of queries included.
-    step = max(1, PHASE3_BUDGET_BYTES // (kk * BLOCK * PHASE3_ROW_BYTES))
-    parts = [
-        _rescore_topk(q_packed[s : s + step], min_lanes[s : s + step], q_scale[s : s + step],
-                      block_max[s : s + step], db_packed, db_valid, kk, out_k)
-        for s in range(0, q, step)
-    ]
-    fs, fi = (torch.cat(column) for column in zip(*parts))
+    # Phases 2 and 3: one launch where the route is "fused". The chain holds
+    # (Q, kk * 128) candidates: it runs over slices of the queries that fit
+    # PHASE3_BUDGET_BYTES. Each query's candidates are its own, so the scores
+    # do not depend on the slicing. Which rows tied at the cut are kept
+    # follows torch.topk there, whose CUDA algorithm (and with it the tie
+    # order) is chosen by shape, the number of queries included.
+    route = scan_route(db_packed.device, k, db_packed.shape[0])
+    select_rescore_topk.by_route[route] += 1
+    if route == "fused":
+        fs, fi = select_rescore_topk(q_packed, min_lanes, q_scale, block_max, db_packed, db_valid, kk, out_k)
+    else:
+        step = max(1, PHASE3_BUDGET_BYTES // (kk * BLOCK * PHASE3_ROW_BYTES))
+        parts = [
+            select_rescore_topk_plain(q_packed[s : s + step], min_lanes[s : s + step], q_scale[s : s + step],
+                                      block_max[s : s + step], db_packed, db_valid, kk, out_k)
+            for s in range(0, q, step)
+        ]
+        fs, fi = (torch.cat(column) for column in zip(*parts))
     if out_k < k:
         fs = torch.nn.functional.pad(fs, (0, k - out_k), value=NEG_SCORE)
         fi = torch.nn.functional.pad(fi, (0, k - out_k), value=-1)
     return fs, fi
 
 
-def _rescore_topk(q_packed, min_lanes, q_scale, block_max, db_packed, db_valid, kk, out_k):
+def scan_route(device, k, cap):
+    # type: (torch.device, int, int) -> str
+    """The route of phases 2-3 of a top-``k`` scan of a ``cap``-row
+    partition on ``device``: ``"fused"`` (:func:`select_rescore_topk`) on a
+    CUDA device where the kk = min(k, cap // 128) candidate blocks' rows,
+    at least one block, fit ``FUSED_MAX_CANDIDATES``, else ``"chain"``
+    (:func:`select_rescore_topk_plain`, on the CPU always)."""
+    kk = min(k, cap // BLOCK)
+    return "fused" if device.type == "cuda" and 0 < kk * BLOCK <= FUSED_MAX_CANDIDATES else "chain"
+
+
+def select_rescore_topk_plain(q_packed, min_lanes, q_scale, block_max, db_packed, db_valid, kk, out_k):
     # type: (...) -> tuple[torch.Tensor, torch.Tensor]
-    """Phases 2 and 3 for a slice of the queries: the top-``kk`` blocks, the
-    exact rescore of their rows and the top-``out_k``. The candidate blocks
-    are rescored in steps that fit PHASE3_BUDGET_BYTES; a step's top-k is
-    merged into the best so far (one step, and so the plain top-k, unless a
-    single query's candidates exceed the budget)."""
+    """Phases 2 and 3 for a slice of the queries, as a chain of PyTorch
+    calls around :func:`gather_rescore`: the top-``kk`` blocks, the exact
+    rescore of their rows and the top-``out_k``. The candidate blocks are
+    rescored in steps that fit PHASE3_BUDGET_BYTES; a step's top-k is merged
+    into the best so far (one step, and so the plain top-k, unless a single
+    query's candidates exceed the budget). The plain version of
+    :func:`select_rescore_topk`."""
     q = q_packed.shape[0]
     total_blocks = db_packed.shape[0] // BLOCK
     top_blocks = topk_blocks_hier(block_max, kk)  # (q, kk) int64
@@ -486,6 +524,52 @@ def _rescore_topk(q_packed, min_lanes, q_scale, block_max, db_packed, db_valid, 
         best = (s, r)
     fs, rows = best
     return fs, torch.where(fs > NEG_SCORE, rows, -1).to(torch.int32)
+
+
+def select_rescore_topk(q_packed, min_lanes, q_scale, block_max, db_packed, db_valid, kk, out_k):
+    # type: (...) -> tuple[torch.Tensor, torch.Tensor]
+    """
+    Phases 2 and 3 of one partition's scan in one launch: each query's
+    top-``kk`` blocks by their phase-1 maxima, the exact rescore of their
+    rows and the top-``out_k`` rows (``csrc/select_rescore.cu``).
+
+    :param block_max: (Q, cap // 128) float32 phase-1 maxima
+    :param db_packed: (cap, lanes) int32 packed partition
+    :param db_valid: (cap,) uint8 validity
+    :param kk: candidate blocks a query, 1 <= kk <= cap // 128; on CUDA
+        ``kk * 128 <= FUSED_MAX_CANDIDATES``
+    :param out_k: rows kept a query, 1 <= out_k <= kk * 128
+    :return: (scores (Q, out_k) float32 descending, rows (Q, out_k) int32,
+        -1 where the score is NEG_SCORE): the contract of
+        :func:`select_rescore_topk_plain`, whose scores it equals
+        ``torch.equal``; of rows tied at a cut it may keep others
+    """
+    cap, lanes = _check_db(db_packed)
+    _check_queries(q_packed, min_lanes, lanes)
+    _check(q_scale, "q_scale", torch.float32, 1)
+    _check(block_max, "block_max", torch.float32, 2)
+    _check(db_valid, "db_valid", torch.uint8, 1)
+    nq, nblocks = block_max.shape
+    if q_scale.shape[0] != nq or nq != q_packed.shape[0] or nblocks != cap // BLOCK or db_valid.shape[0] != cap:
+        raise ValueError("q_scale must be (Q,), block_max (Q, cap // 128) and db_valid (cap,)")
+    if not (1 <= kk <= nblocks and 1 <= out_k <= kk * BLOCK):
+        raise ValueError(f"need 1 <= kk <= {nblocks} and 1 <= out_k <= kk * {BLOCK}, got kk={kk}, out_k={out_k}")
+    if _route([q_packed, min_lanes, q_scale, block_max, db_packed, db_valid]) == "cpu":
+        return select_rescore_topk_plain(q_packed, min_lanes, q_scale, block_max, db_packed, db_valid, kk, out_k)
+    if kk * BLOCK > FUSED_MAX_CANDIDATES or block_max.data_ptr() % 16:
+        raise ValueError(f"the kernel takes kk * {BLOCK} <= {FUSED_MAX_CANDIDATES} and a 16-byte aligned block_max")
+    scores = torch.empty((nq, out_k), dtype=torch.float32, device=db_packed.device)
+    rows = torch.empty((nq, out_k), dtype=torch.int32, device=db_packed.device)
+    launch(
+        select_rescore_topk, "iscc_select_rescore", db_packed.device, q_packed.data_ptr(), q_packed.stride(0),
+        min_lanes.data_ptr(), q_scale.data_ptr(), block_max.data_ptr(), nq, nblocks, kk, out_k,
+        db_packed.data_ptr(), db_valid.data_ptr(), lanes, scores.data_ptr(), rows.data_ptr(),
+    )
+    return scores, rows
+
+
+select_rescore_topk.launches = 0
+select_rescore_topk.by_route = dict.fromkeys(SCAN_ROUTES, 0)  # blockmax_topk_impl's scans, by route
 
 
 def blockmax_topk_packedq_impl(

@@ -27,9 +27,11 @@ The spans (README.md, "Tracing the search path"):
 - ``search`` (``PackedCodeIndex._search_impl``; count ``queries``) and its
   four children, one after the other: ``search.prepare`` (the lock, the
   device sync, the partition snapshot, query packing and upload),
-  ``search.launch`` (every partition's scan enqueued), ``search.wait`` (the
-  readbacks queued and the stream waited for) and ``search.merge`` (the
-  per-query merge on the host; count ``candidates`` read back and merged);
+  ``search.launch`` (every partition's scan enqueued; count ``fused_scans``,
+  the scans whose phases 2-3 took one launch, where there are any),
+  ``search.wait`` (the readbacks queued and the stream waited for) and
+  ``search.merge`` (the per-query merge on the host; count ``candidates``
+  read back and merged);
 - on a mesh, from every sharded scan of :mod:`iscc_search_tpu_torch.parallel`,
   under ``search.launch`` in an index's search (``PackedCodeIndex(mesh=...)``):
   one ``mesh.scan`` per shard and partition (the shard's scan enqueued on

@@ -21,6 +21,7 @@ from iscc_search_tpu_torch.engine import DeviceNphdIndex
 from iscc_search_tpu_torch.experiments import bitplane_layout, exp_bitplane_int8, exp_bitplane_u8, exp_int4, exp_kernels
 from iscc_search_tpu_torch.ops import bitplane
 from iscc_search_tpu_torch.ops import hopper_scan as hs
+from iscc_search_tpu_torch.ops import select_layout
 from iscc_search_tpu_torch.ops import wgmma_layout as wl
 from iscc_search_tpu_torch.ops.nphd import nphd_scores
 from iscc_search_tpu_torch.ops.pm1_scan import masked_queries, query_prefix
@@ -339,10 +340,11 @@ def test_index_search_on_card_matches_cpu_index(dev):
         idx.remove(list(range(0, n, 9)))
     q_rows = rng.integers(0, n, 40)
     bodies = [codes[i, : lanes[i]].astype(">u4").tobytes() for i in q_rows]
-    launches = sum(fn.launches for fn in hs.PHASE1.values()), hs.gather_rescore.launches
+    launches = sum(fn.launches for fn in hs.PHASE1.values()), hs.select_rescore_topk.launches, hs.gather_rescore.launches
     res_gpu = gpu.search(bodies, 10)
     assert sum(fn.launches for fn in hs.PHASE1.values()) == launches[0] + 4
-    assert hs.gather_rescore.launches == launches[1] + 4
+    assert hs.select_rescore_topk.launches == launches[1] + 4  # phases 2-3 fused at k = 16
+    assert hs.gather_rescore.launches == launches[2]
     res_cpu = cpu.search(bodies, 10)
     valid = np.ones(n, bool)
     valid[::9] = False
@@ -760,10 +762,120 @@ def test_phase3_query_split_is_exact_on_the_card(dev, monkeypatch, queries_per_s
     the number of queries (its tie order depends on that choice)."""
     q_packed, min_lanes, q_scale, db, valid, _ = _case(dev, 128, seed=9, cap=128 * 400, nq=77)
     args = (q_packed, min_lanes, q_scale, db, valid, k)
+    monkeypatch.setattr(hs, "FUSED_MAX_CANDIDATES", 0)  # the chain, which alone splits the queries
     want = hs.blockmax_topk_impl(*args, phase1="popc")
     monkeypatch.setattr(hs, "PHASE3_BUDGET_BYTES", queries_per_step * k * hs.BLOCK * hs.PHASE3_ROW_BYTES)
     got = hs.blockmax_topk_impl(*args, phase1="popc")
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+# ------------------------------------------------- phases 2-3 in one launch
+
+
+def _select_case(dev, lanes, nblocks, seed, nq=512, live=None, planted=3):
+    """(q_packed (Q, 8), min_lanes, q_scale, block_max, db, valid) on the
+    card: random rows with tombstones, three blocks with no valid row and
+    invalid padding (or only ``live`` valid rows), each query's code and
+    one bit off it planted at ``planted`` rows (ties of maxima and scores
+    at both cuts), queries of every length; phase 1 by ``blockmax``."""
+    rng = np.random.default_rng(seed)
+    cap = nblocks * 128
+    db = rng.integers(0, 2**32, (cap, lanes), dtype=np.uint32)
+    q, q_lanes = _random_codes(rng, nq)
+    q_lanes[::5] = 1
+    q[::5, 1:] = 0
+    for qi in range(nq):
+        at = rng.integers(0, cap, planted)
+        db[at] = q[qi, :lanes]
+        db[at[: planted // 2], 0] ^= 1
+    valid = np.ones(cap, np.uint8)
+    valid[::7] = 0
+    dead = rng.choice(nblocks, min(3, nblocks - 1), replace=False)
+    valid[(dead[:, None] * 128 + np.arange(128)).ravel()] = 0
+    valid[cap - 61 :] = 0
+    if live is not None:
+        valid[:] = 0
+        valid[rng.choice(cap, live, replace=False)] = 1
+    q_packed = torch.from_numpy(q.view(np.int32)).to(dev)
+    min_lanes, q_scale = query_prefix(torch.from_numpy(q_lanes).to(dev), lanes * 32)
+    db_t = torch.from_numpy(db.view(np.int32)).to(dev)
+    valid_t = torch.from_numpy(valid).to(dev)
+    return q_packed, min_lanes, q_scale, hs.blockmax(q_packed, min_lanes, q_scale, db_t, valid_t), db_t, valid_t
+
+
+def _select_blocks(kk, shape):
+    """Blocks of a partition of the named shape for ``kk`` candidate
+    blocks: past the hierarchy's edge, at it (2 * kk super-blocks: flat),
+    ragged, and fewer than a super-block."""
+    return {"hierarchy": (2 * kk + 3) * 128, "edge": 2 * kk * 128, "ragged": (2 * kk + 1) * 128 + 37,
+            "small": kk + 5}[shape]
+
+
+@pytest.mark.parametrize("shape", ("hierarchy", "edge", "ragged", "small"))
+@pytest.mark.parametrize("kk", (1, 16, hs.FUSED_MAX_CANDIDATES // hs.BLOCK))
+@pytest.mark.parametrize("lanes", (2, 4, 6, 8))
+def test_select_rescore_kernel_keeps_the_chains_contract(dev, lanes, kk, shape):
+    """The kernel against the chain it replaces on the card, at Q = 1, 7,
+    64 and 512, at the widest cut a scan makes (out_k = kk) and a narrower
+    one: scores ``torch.equal``, every row distinct, valid and of its exact
+    score, -1 exactly at NEG_SCORE; rows and scores equal the mirrored flow
+    (``ops/select_layout.py``) on a sample of the queries, tie order
+    included; one launch a call, the same output every call."""
+    nblocks = _select_blocks(kk, shape)
+    args = _select_case(dev, lanes, nblocks, seed=lanes * 1000 + kk * 10 + len(shape))
+    host = [t.cpu().numpy() for t in args]
+    for nq in (1, 7, 64, 512):
+        part = [t[:nq] for t in args[:4]] + list(args[4:])
+        for out_k in (kk, max(1, kk // 3)):
+            before = hs.select_rescore_topk.launches
+            got = hs.select_rescore_topk(*part, kk, out_k)
+            again = hs.select_rescore_topk(*part, kk, out_k)
+            torch.cuda.synchronize()
+            assert hs.select_rescore_topk.launches == before + 2
+            assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+            want = hs.select_rescore_topk_plain(*part, kk, out_k)
+            select_layout.check_contract(*got, want[0], *part[:3], *args[4:])
+            sample = min(nq, 16)
+            mirror = select_layout.select_rescore(*(h[:sample] for h in host[:4]), *host[4:], kk, out_k)
+            np.testing.assert_array_equal(got[0][:sample].cpu().numpy(), mirror[0])
+            np.testing.assert_array_equal(got[1][:sample].cpu().numpy(), mirror[1])
+
+
+@pytest.mark.parametrize("live", (0, 5, 40))
+def test_select_rescore_kernel_with_fewer_valid_rows_than_the_cut(dev, live):
+    """A partition of 0, 5 or 40 valid rows, kk = 16 of 300 blocks (flat)
+    and of 5,000 (the hierarchy), cut at 16 and at every candidate: the
+    valid rows first, then NEG_SCORE and -1; the chain's contract where
+    the candidates hold every valid row, and the mirrored flow's rows."""
+    for nblocks in (300, 5000):
+        args = _select_case(dev, 4, nblocks, seed=live + nblocks, nq=64, live=live)
+        for out_k in (16, 16 * 128):
+            got = hs.select_rescore_topk(*args, 16, out_k)
+            want = hs.select_rescore_topk_plain(*args, 16, out_k)
+            torch.cuda.synchronize()
+            if out_k == 16 or live <= 16:  # else the cut passes the top 16 rows, which alone are exact
+                select_layout.check_contract(*got, want[0], *args[:3], *args[4:])
+            assert int((got[1] >= 0).sum(dim=1).max()) <= live
+            mirror = select_layout.select_rescore(*(t[:8].cpu().numpy() for t in args[:4]),
+                                                  *(t.cpu().numpy() for t in args[4:]), 16, out_k)
+            np.testing.assert_array_equal(got[1][:8].cpu().numpy(), mirror[1])
+
+
+def test_scans_take_the_fused_route_by_shape(dev):
+    """``blockmax_topk_impl`` on the card: k = 16 takes one launch of the
+    kernel (``by_route`` "fused"), k = 512 the chain (``gather_rescore``),
+    and both answer the plain CPU scan's scores."""
+    q_packed, min_lanes, q_scale, _, db, valid = _select_case(dev, 4, 1024, seed=3, nq=77)
+    for k, route in ((16, "fused"), (512, "chain")):
+        before = dict(hs.select_rescore_topk.by_route), hs.select_rescore_topk.launches, hs.gather_rescore.launches
+        got = hs.blockmax_topk_impl(q_packed, min_lanes, q_scale, db, valid, k)
+        torch.cuda.synchronize()
+        assert hs.select_rescore_topk.by_route == {**before[0], route: before[0][route] + 1}
+        assert hs.select_rescore_topk.launches - before[1] == (route == "fused")
+        assert hs.gather_rescore.launches - before[2] == (route == "chain")
+        cpu = [t.cpu() for t in (q_packed, min_lanes, q_scale, db, valid)]
+        want = hs.blockmax_topk_impl(*cpu, k)
+        assert torch.equal(got[0].cpu(), want[0])
 
 
 def test_the_store_builds_from_its_own_source_on_the_card_host():
@@ -808,7 +920,7 @@ def test_meshes_over_cuda_devices(dev):
 @pytest.mark.parametrize("nq", (1, 40, 300))
 def test_sharded_engine_on_card_equals_the_cpu_index(dev, nq):
     """4 shards on the card: every shard's scan launches its phase-1 kernel
-    and ``gather_rescore`` on the card, the merged answers stay there, and
+    and ``select_rescore_topk`` on the card, the merged answers stay there, and
     the scores equal the CPU index's (plain versions, no mesh); every row
     carries its brute-force score."""
     rng = np.random.default_rng(17)
@@ -817,10 +929,10 @@ def test_sharded_engine_on_card_equals_the_cpu_index(dev, nq):
     assert all(len(p.packed_dev) == 4 and all(t.device == dev for t in p.packed_dev) for p in parts.values())
     q_rows = rng.integers(0, 30000, nq)
     bodies = [codes[i, : lanes[i]].astype(">u4").tobytes() for i in q_rows]
-    phase1, gather = sum(fn.launches for fn in hs.PHASE1.values()), hs.gather_rescore.launches
+    phase1, fused = sum(fn.launches for fn in hs.PHASE1.values()), hs.select_rescore_topk.launches
     res_gpu = gpu.search(bodies, 10)
     assert sum(fn.launches for fn in hs.PHASE1.values()) == phase1 + 4 * len(parts)
-    assert hs.gather_rescore.launches == gather + 4 * len(parts)
+    assert hs.select_rescore_topk.launches == fused + 4 * len(parts)
     ref = nphd_scores(
         torch.from_numpy(codes[q_rows].view(np.int32)), torch.from_numpy(lanes[q_rows]),
         torch.from_numpy(codes.view(np.int32)), torch.from_numpy(lanes), torch.from_numpy(valid),
@@ -835,7 +947,7 @@ def test_sharded_engine_on_card_equals_the_cpu_index(dev, nq):
 @pytest.mark.parametrize("nbits", WIDTHS)
 def test_sharded_twin_route_launches_kernel_4_per_shard(dev, nbits):
     """``sharded_pallas_topk`` on 4 shards of the card: kernel 4
-    (``blockmax_mma_unpacked``) and ``gather_rescore`` once per shard, the
+    (``blockmax_mma_unpacked``) and ``select_rescore_topk`` once per shard, the
     result ``torch.equal`` to the popc route per shard + the same merge on
     the card, and its scores to the same call on CPU shards (plain versions)."""
     from iscc_search_tpu_torch.parallel.merge import lift_rows, merge_topk
@@ -849,9 +961,9 @@ def test_sharded_twin_route_launches_kernel_4_per_shard(dev, nbits):
         packed, shards_valid = shard_pm1_database(mesh, db.to(where), valid.to(where))
         twin = shard_unpacked_db(mesh, packed, nbits)
         query = (q_packed.to(where), min_lanes.to(where), q_scale.to(where))
-        before = hs.blockmax_mma_unpacked.launches, hs.gather_rescore.launches
+        before = hs.blockmax_mma_unpacked.launches, hs.select_rescore_topk.launches
         outs.append(sharded_pallas_topk(mesh, *query, packed, twin, shards_valid, 10, nbits, merge_k=16))
-        launched = hs.blockmax_mma_unpacked.launches - before[0], hs.gather_rescore.launches - before[1]
+        launched = hs.blockmax_mma_unpacked.launches - before[0], hs.select_rescore_topk.launches - before[1]
         assert launched == ((4, 4) if where.type == "cuda" else (0, 0))
         assert outs[-1][0].device == where
         if where.type == "cuda":
@@ -867,12 +979,12 @@ def test_pallas_mesh_equals_the_auto_mesh_and_xla_routes_as_auto(dev, nq):
     """4 shards of the card under ``scan_kernel="pallas"``: every partition
     carries the int8 twin per shard, kernel 4's block maxima from it are
     ``torch.equal`` to the ``"auto"`` mesh's phase 1 on the packed shards,
-    a search launches kernel 4 and ``gather_rescore`` once per shard and
-    partition and no other phase-1 kernel, and its answers equal the
+    a search launches kernel 4 and ``select_rescore_topk`` once per shard
+    and partition and no other phase-1 kernel, and its answers equal the
     ``"auto"`` mesh's by score multiset. ``"xla"`` (on the mesh and on one
     device) launches what ``"auto"`` does, the kernel ``auto_phase1`` names
-    and ``gather_rescore`` once per shard and partition, and answers the
-    same."""
+    and ``select_rescore_topk`` once per shard and partition, and answers
+    the same."""
     from iscc_search_tpu_torch.engine.device_index import auto_phase1
     from iscc_search_tpu_torch.ops.packing import pack_codes
 
@@ -905,7 +1017,7 @@ def test_pallas_mesh_equals_the_auto_mesh_and_xla_routes_as_auto(dev, nq):
     want = made["auto"].search(bodies, 10)
 
     def counts():
-        return {name: fn.launches for name, fn in (*hs.PHASE1.items(), ("gather", hs.gather_rescore))}
+        return {name: fn.launches for name, fn in (*hs.PHASE1.items(), ("select", hs.select_rescore_topk))}
 
     for name, idx in made.items():
         if name == "auto":
@@ -918,7 +1030,7 @@ def test_pallas_mesh_equals_the_auto_mesh_and_xla_routes_as_auto(dev, nq):
         want_launched = dict.fromkeys(launched, 0)
         for lv in auto_parts:
             want_launched["mma_twin" if name == "pallas" else auto_phase1(nq, lv)] += shards
-            want_launched["gather"] += shards
+            want_launched["select"] += shards
         assert launched == want_launched
         for (_, sg), (_, sw) in zip(got, want):
             np.testing.assert_array_equal(np.sort(sg), np.sort(sw))
